@@ -1,4 +1,5 @@
-"""Solver core: projections, the dual oracle, and the AGD maximizer."""
+"""Solver core: projections, the dual oracle, the AGD maximizer, and its
+column-sharded counterpart."""
 from repro_torch.core.maximizer import (
     PAPER_GAMMA_SCHEDULE,
     Maximizer,
@@ -23,6 +24,11 @@ from repro_torch.core.projections import (
     project_box_cut,
     project_simplex,
 )
+from repro_torch.core.sharding import (
+    DistConfig,
+    DistributedMaximizer,
+    shard_instance,
+)
 
 __all__ = [
     "PAPER_GAMMA_SCHEDULE",
@@ -36,6 +42,9 @@ __all__ = [
     "binned_segment_sum",
     "normalize_rows",
     "start_vector",
+    "DistConfig",
+    "DistributedMaximizer",
+    "shard_instance",
     "ProjectionMap",
     "UnitSimplexProjection",
     "BoxProjection",

@@ -12,6 +12,12 @@ decides (the restart test `g < g_prev`, the lam >= 0 clamp) stays on the
 device: the fixed-budget stage never waits for the device, and the
 early-stopping stage waits once per `check_every` chunk, as the reference's
 `while_loop` of scanned chunks does.
+
+The stage loops take `calculate(lam, gamma, comm) -> (DualEval, comm)`:
+`comm` is an opaque per-process communication state threaded through the
+iterations (the error-feedback accumulator of the sharded solve's
+compressed all-reduce, `core.sharding`); the single-device solve passes
+None through.
 """
 from __future__ import annotations
 
@@ -109,10 +115,20 @@ class _Carry(NamedTuple):
     lam: torch.Tensor
     tk: torch.Tensor  # momentum counter (float)
     g_prev: torch.Tensor
+    comm: object  # opaque per-process communication state (error feedback)
+
+
+Calculate = Callable[[torch.Tensor, float, object], tuple[DualEval, object]]
+
+
+def local_calculate(objective: MatchingObjective) -> Calculate:
+    """The single-device stage `calculate`: the objective's, with the
+    communication state passed through untouched."""
+    return lambda lam, gamma, comm: (objective.calculate(lam, gamma), comm)
 
 
 def _agd_body(
-    calculate: Callable[[torch.Tensor, float], DualEval],
+    calculate: Calculate,
     gamma: float,
     eta: torch.Tensor,
     *,
@@ -127,7 +143,7 @@ def _agd_body(
             beta = (carry.tk - 1.0) / (carry.tk + 2.0)
             mu = mu + beta * (carry.lam - carry.lam_prev)
         mu = torch.clamp_min(mu, 0.0)
-        ev = calculate(mu, gamma)
+        ev, comm = calculate(mu, gamma, carry.comm)
         lam_next = torch.clamp_min(mu + eta * ev.grad, 0.0)
         if adaptive_restart:
             tk_next = torch.where(ev.g < carry.g_prev, 1.0, carry.tk + 1.0)
@@ -135,18 +151,21 @@ def _agd_body(
             tk_next = carry.tk + 1.0
         gn = torch.linalg.vector_norm(ev.grad)
         viol = torch.clamp_min(ev.grad, 0.0).max()
-        new = _Carry(lam_prev=carry.lam, lam=lam_next, tk=tk_next, g_prev=ev.g)
+        new = _Carry(
+            lam_prev=carry.lam, lam=lam_next, tk=tk_next, g_prev=ev.g, comm=comm
+        )
         return new, (ev.g, gn, viol)
 
     return body
 
 
-def _init_carry(lam0: torch.Tensor) -> _Carry:
+def _init_carry(lam0: torch.Tensor, comm0: object) -> _Carry:
     return _Carry(
         lam_prev=lam0,
         lam=lam0,
         tk=torch.ones((), dtype=lam0.dtype, device=lam0.device),
         g_prev=torch.full((), -torch.inf, dtype=lam0.dtype, device=lam0.device),
+        comm=comm0,
     )
 
 
@@ -160,7 +179,7 @@ def _run(body: Callable, carry, steps: int):
 
 
 def _stage_scan(
-    calculate: Callable,
+    calculate: Calculate,
     lam0: torch.Tensor,
     gamma: float,
     eta: torch.Tensor,
@@ -168,14 +187,16 @@ def _stage_scan(
     *,
     acceleration: bool,
     adaptive_restart: bool,
-) -> tuple[torch.Tensor, StageStats]:
-    """One continuation stage of accelerated projected dual ascent."""
+    comm0: object = None,
+) -> tuple[torch.Tensor, StageStats, object]:
+    """One continuation stage of accelerated projected dual ascent:
+    `(lam, stats, comm)`."""
     body = _agd_body(
         calculate, gamma, eta,
         acceleration=acceleration, adaptive_restart=adaptive_restart,
     )
-    final, (gs, gns, viols) = _run(body, _init_carry(lam0), iters)
-    return final.lam, StageStats(g=gs, grad_norm=gns, max_violation=viols)
+    final, (gs, gns, viols) = _run(body, _init_carry(lam0, comm0), iters)
+    return final.lam, StageStats(g=gs, grad_norm=gns, max_violation=viols), final.comm
 
 
 def _chunked_early_scan(
@@ -185,19 +206,26 @@ def _chunked_early_scan(
     *,
     check_every: int,
     stop_predicate: Callable,
+    stop_reduce: Optional[Callable] = None,
 ):
     """Run `body` in chunks of `check_every` steps until `stop_predicate`
     of the last chunk's traces holds or the budget is spent; one host wait
-    per chunk.  Returns `(final_carry, traces, steps_used)`; traces are
-    padded to the rounded-up budget with the last computed value, so
-    `trace[-1]` stays meaningful after an early exit."""
+    per chunk.  `stop_reduce` makes the decision collective (the sharded
+    solve's unanimous vote, `core.sharding`): it must return the same value
+    in every process, or they leave the loop at different chunks and the
+    collectives inside `body` hang.  Returns `(final_carry, traces,
+    steps_used)`; traces are padded to the rounded-up budget with the last
+    computed value, so `trace[-1]` stays meaningful after an early exit."""
     chunk = max(1, min(int(check_every), int(iters)))
     n_chunks = -(-int(iters) // chunk)
     carry, parts = carry0, []
     for _ in range(n_chunks):
         carry, traces = _run(body, carry, chunk)
         parts.append(traces)
-        if bool(stop_predicate(traces)):
+        done = stop_predicate(traces)
+        if stop_reduce is not None:
+            done = stop_reduce(done)
+        if bool(done):
             break
     steps_used = len(parts) * chunk
     pad = n_chunks * chunk - steps_used
@@ -208,7 +236,7 @@ def _chunked_early_scan(
 
 
 def _stage_scan_early(
-    calculate: Callable,
+    calculate: Calculate,
     lam0: torch.Tensor,
     gamma: float,
     eta: torch.Tensor,
@@ -219,10 +247,14 @@ def _stage_scan_early(
     tol_grad: Optional[float],
     tol_viol: Optional[float],
     check_every: int,
-) -> tuple[torch.Tensor, StageStats, int]:
+    comm0: object = None,
+    stop_reduce: Optional[Callable] = None,
+) -> tuple[torch.Tensor, StageStats, object, int]:
     """Early-stopping variant of `_stage_scan`: after each chunk of
     `check_every` iterations the stage exits once
-    ``||grad|| <= tol_grad * max(1, |g|)  and  max(0, Ax-b) <= tol_viol``."""
+    ``||grad|| <= tol_grad * max(1, |g|)  and  max(0, Ax-b) <= tol_viol``
+    (reduced by `stop_reduce` when given).  Returns `(lam, stats, comm,
+    iters_used)`."""
     body = _agd_body(
         calculate, gamma, eta,
         acceleration=acceleration, adaptive_restart=adaptive_restart,
@@ -239,10 +271,57 @@ def _stage_scan_early(
         return done
 
     final, (bg, bgn, bv), used = _chunked_early_scan(
-        body, _init_carry(lam0), iters,
+        body, _init_carry(lam0, comm0), iters,
         check_every=check_every, stop_predicate=stop_predicate,
+        stop_reduce=stop_reduce,
     )
-    return final.lam, StageStats(g=bg, grad_norm=bgn, max_violation=bv), used
+    stats = StageStats(g=bg, grad_norm=bgn, max_violation=bv)
+    return final.lam, stats, final.comm, used
+
+
+def _continuation(
+    calculate: Calculate,
+    lam: torch.Tensor,
+    sigma_sq: torch.Tensor,
+    cfg: MaximizerConfig,
+    *,
+    comm0: Callable[[], object] = lambda: None,
+    stop_reduce: Optional[Callable] = None,
+) -> SolveResult:
+    """The continuation solve from `lam`: one AGD stage per gamma of the
+    schedule (early-stopping when configured), then the final `calculate`.
+    `comm0()` gives each stage, and the final call, a fresh communication
+    state; `stop_reduce` makes the stop vote collective (`core.sharding`)."""
+    kw = dict(acceleration=cfg.acceleration, adaptive_restart=cfg.adaptive_restart)
+    stats: list[StageStats] = []
+    steps: list[float] = []
+    iters_used: list[int] = []
+    for gamma in cfg.gammas:
+        eta = step_size(cfg, sigma_sq, gamma).to(lam.dtype)
+        if cfg.early_stop:
+            lam, st, _, used = _stage_scan_early(
+                calculate, lam, gamma, eta, cfg.iters_per_stage,
+                tol_grad=cfg.tol_grad, tol_viol=cfg.tol_viol,
+                check_every=cfg.check_every, comm0=comm0(),
+                stop_reduce=stop_reduce, **kw,
+            )
+            iters_used.append(used)
+        else:
+            lam, st, _ = _stage_scan(
+                calculate, lam, gamma, eta, cfg.iters_per_stage, comm0=comm0(), **kw
+            )
+        stats.append(st)
+        steps.append(float(eta))
+    final, _ = calculate(lam, cfg.gammas[-1], comm0())
+    return SolveResult(
+        lam=lam,
+        x_slabs=final.x_slabs,
+        g=final.g,
+        stats=tuple(stats),
+        sigma_sq=sigma_sq,
+        steps=tuple(steps),
+        iters_used=tuple(iters_used) if cfg.early_stop else None,
+    )
 
 
 class Maximizer:
@@ -267,32 +346,4 @@ class Maximizer:
             if lam0 is None else lam0
         )
         sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
-        kw = dict(acceleration=cfg.acceleration, adaptive_restart=cfg.adaptive_restart)
-        stats: list[StageStats] = []
-        steps: list[float] = []
-        iters_used: list[int] = []
-        for gamma in cfg.gammas:
-            eta = self.step_size(sigma_sq, gamma).to(lam.dtype)
-            if cfg.early_stop:
-                lam, st, used = _stage_scan_early(
-                    obj.calculate, lam, gamma, eta, cfg.iters_per_stage,
-                    tol_grad=cfg.tol_grad, tol_viol=cfg.tol_viol,
-                    check_every=cfg.check_every, **kw,
-                )
-                iters_used.append(used)
-            else:
-                lam, st = _stage_scan(
-                    obj.calculate, lam, gamma, eta, cfg.iters_per_stage, **kw
-                )
-            stats.append(st)
-            steps.append(float(eta))
-        final = obj.calculate(lam, cfg.gammas[-1])
-        return SolveResult(
-            lam=lam,
-            x_slabs=final.x_slabs,
-            g=final.g,
-            stats=tuple(stats),
-            sigma_sq=sigma_sq,
-            steps=tuple(steps),
-            iters_used=tuple(iters_used) if cfg.early_stop else None,
-        )
+        return _continuation(local_calculate(obj), lam, sigma_sq, cfg)

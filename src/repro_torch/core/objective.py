@@ -8,20 +8,24 @@ for the ridge-regularized matching LP:
     g(lam)        = c'x* + (gamma/2)||x*||^2 + lam'(A x* - b)
 
 over the bucketed-ELL layout: A^T lam is a per-bucket gather, A x a
-per-bucket scatter-add into J bins per family.  `fused_oracle=True` routes
+per-bucket sum into J bins per family, in a fixed order (`binned_segment_sum`).  `fused_oracle=True` routes
 the whole of `calculate` through the one-pass fused dual oracle
 (`kernels.ops.fused_dual_oracle`): per bucket, one kernel launch emits the
 primal slab, the A x histogram and (c'x, ||x||^2) from a single slab read.
+`fused_kernel=True` routes only the primal step through the fused primal
+kernel (`kernels.ops.fused_dual_primal`); A x and the objective terms stay
+on the plain path.
 
 The formulation layer of the reference (a `FormulationSpec` on the instance,
 non-unit term scales) is not part of this port yet; `repro_torch.convert`
 refuses an instance that carries one.  `gamma` is a Python float throughout,
-so no call here waits for the device.
+so no call here waits for the device, apart from the first A x of an
+objective, which sorts each bucket's bins once (`segment_plans`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -38,10 +42,12 @@ from repro_torch.instances.buckets import (
 __all__ = [
     "DualEval",
     "MatchingObjective",
+    "SegmentPlan",
     "binned_segment_sum",
     "gather_at_lam",
     "inv_gamma",
     "normalize_rows",
+    "segment_plan",
     "start_vector",
 ]
 
@@ -80,24 +86,46 @@ def inv_gamma(gamma: float) -> float:
     return float(np.float32(1.0) / np.float32(gamma))
 
 
-def binned_segment_sum(idx: torch.Tensor, contrib: torch.Tensor, J: int) -> torch.Tensor:
-    """Scatter-add [m, ...] contributions into [m, J] bins keyed by `idx`.
+class SegmentPlan(NamedTuple):
+    """The fixed order in which `binned_segment_sum` adds one slab's slots."""
 
-    One `index_add_` over family-offset indices (idx + k*J).  On CUDA it
-    uses atomics, so the order of additions, and the last bits of the sums,
-    may change from run to run; the fused kernel does not.
-    """
-    m = contrib.shape[0]
+    order: torch.Tensor  # [m*n*L] int64: the slots sorted by bin, stably
+    offsets: torch.Tensor  # [m*J + 1] int64: where each bin starts in `order`
+
+
+def segment_plan(idx: torch.Tensor, m: int, J: int) -> SegmentPlan:
+    """Sort the family-offset bins (idx + k*J) of one slab once."""
     offs = torch.arange(m, device=idx.device, dtype=torch.int64)[:, None] * J
     seg = (idx.reshape(1, -1).long() + offs).reshape(-1)
-    out = torch.zeros(m * J, dtype=contrib.dtype, device=contrib.device)
-    out.index_add_(0, seg, contrib.reshape(-1))
+    counts = torch.bincount(seg, minlength=m * J)
+    return SegmentPlan(torch.argsort(seg, stable=True),
+                       torch.cat([counts.new_zeros(1), counts.cumsum(0)]))
+
+
+def binned_segment_sum(
+    idx: torch.Tensor, contrib: torch.Tensor, J: int, plan: SegmentPlan | None = None
+) -> torch.Tensor:
+    """Sum [m, ...] contributions into [m, J] bins keyed by `idx`.
+
+    The contributions are put in the plan's order (bins ascending, slots
+    ascending within a bin) and reduced per bin by `segment_reduce`, so the
+    sums are the same in every run on a device: no float atomics.  On
+    the CPU they are bitwise those of `index_add_` in slot order.  The plan
+    is computed here when none is given (`segment_plan`).
+    """
+    m = contrib.shape[0]
+    if plan is None:
+        plan = segment_plan(idx, m, J)
+    ordered = torch.index_select(contrib.reshape(-1), 0, plan.order)
+    out = torch.segment_reduce(ordered, "sum", offsets=plan.offsets, unsafe=True)
     return out.reshape(m, J)
 
 
-def _segment_sum_ax(bucket: Bucket, x: torch.Tensor, J: int) -> torch.Tensor:
+def _segment_sum_ax(
+    bucket: Bucket, x: torch.Tensor, J: int, plan: SegmentPlan
+) -> torch.Tensor:
     """This bucket's contribution to A x: [m, J]."""
-    return binned_segment_sum(bucket.idx, bucket.coeff * (x * bucket.mask)[None], J)
+    return binned_segment_sum(bucket.idx, bucket.coeff * (x * bucket.mask)[None], J, plan)
 
 
 def start_vector(n: int, seed: int, device) -> torch.Tensor:
@@ -122,8 +150,15 @@ class MatchingObjective:
         default_factory=UnitSimplexProjection
     )
     include_rhs: bool = True
+    # fused primal step: one kernel launch per bucket computes x
+    fused_kernel: bool = False
     # one-pass fused dual oracle: one kernel launch per bucket per call
+    # (subsumes fused_kernel)
     fused_oracle: bool = False
+    # per-bucket summation order of A x, built at first use
+    _plans: tuple[SegmentPlan, ...] | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
 
     @property
     def dual_dim(self) -> int:
@@ -134,9 +169,29 @@ class MatchingObjective:
         """fp32 compute views of the buckets for the unfused paths."""
         return tuple(dequantize_bucket(b) for b in self.instance.buckets)
 
+    def _simplex(self, kind: str) -> UnitSimplexProjection:
+        if not isinstance(self.projection, UnitSimplexProjection):
+            raise ValueError(f"the fused {kind} implements the simplex feasible set")
+        return self.projection
+
     def primal_candidate(self, lam: torch.Tensor, gamma: float) -> tuple[torch.Tensor, ...]:
         """x*_gamma(lam) per bucket (eq. 3)."""
         inst = self.instance
+        if self.fused_kernel:
+            from repro_torch.kernels import ops as kops
+
+            proj = self._simplex("primal kernel")
+            return tuple(
+                kops.fused_dual_primal(
+                    b.idx, b.coeff, b.cost, b.mask, lam, gamma,
+                    num_destinations=inst.num_destinations,
+                    radius=proj.radius,
+                    inequality=proj.inequality,
+                    coeff_scale=b.coeff_scale,
+                    cost_scale=b.cost_scale,
+                )
+                for b in inst.buckets
+            )
         lam2 = lam.reshape(inst.num_families, inst.num_destinations)
         ginv = inv_gamma(gamma)
         return tuple(
@@ -144,16 +199,26 @@ class MatchingObjective:
             for b in self._buckets
         )
 
+    def segment_plans(self) -> tuple[SegmentPlan, ...]:
+        """Each bucket's `SegmentPlan`, sorted once per objective."""
+        if self._plans is None:
+            inst = self.instance
+            self._plans = tuple(
+                segment_plan(b.idx, inst.num_families, inst.num_destinations)
+                for b in inst.buckets
+            )
+        return self._plans
+
     def apply_A(self, x_slabs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """A x as a [m*J] vector (accumulated in fp32)."""
+        """A x as a [m*J] vector (accumulated in fp32, in a fixed order)."""
         inst = self.instance
         ax = torch.zeros(
             (inst.num_families, inst.num_destinations),
             dtype=torch.promote_types(x_slabs[0].dtype, torch.float32),
             device=inst.device,
         )
-        for b, x in zip(self._buckets, x_slabs):
-            ax = ax + _segment_sum_ax(b, x, inst.num_destinations)
+        for b, x, plan in zip(self._buckets, x_slabs, self.segment_plans()):
+            ax = ax + _segment_sum_ax(b, x, inst.num_destinations, plan)
         return ax.reshape(-1)
 
     def apply_AT(self, lam: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -169,7 +234,7 @@ class MatchingObjective:
         x_slabs = self.primal_candidate(lam, gamma)
         ax = self.apply_A(x_slabs)
         buckets = self._buckets
-        lin = sum(_vdot(b.cost, x) for b, x in zip(buckets, x_slabs))
+        lin = sum(_vdot(b.cost, _acc32(x)) for b, x in zip(buckets, x_slabs))
         ridge = 0.5 * gamma * sum(_vdot(_acc32(x), _acc32(x)) for x in x_slabs)
         return self._finish_eval(lam, ax, lin, ridge, x_slabs)
 
@@ -187,9 +252,7 @@ class MatchingObjective:
         plus this bucket's A x histogram and objective scalars."""
         from repro_torch.kernels import ops as kops
 
-        proj = self.projection
-        if not isinstance(proj, UnitSimplexProjection):
-            raise ValueError("the fused dual oracle implements the simplex feasible set")
+        proj = self._simplex("dual oracle")
         inst = self.instance
         ax2 = torch.zeros(
             (inst.num_families, inst.num_destinations), dtype=torch.float32,
@@ -220,16 +283,22 @@ class MatchingObjective:
         """max(0, Ax - b) infinity-norm — the paper's Table-4 'slack'."""
         return torch.clamp_min(self.apply_A(x_slabs) - self.instance.rhs, 0.0).max()
 
-    def power_iteration(self, seed: int, iters: int = 30) -> torch.Tensor:
+    def power_iteration(
+        self, seed: int, iters: int = 30, reduce: Callable | None = None
+    ) -> torch.Tensor:
         """sigma_max(A)^2 estimate via power iteration on A A^T.
 
         Drives the analytic AGD step size 1/L, L = sigma_max^2 / gamma
         (paper §3.1).  The start vector comes from `start_vector(seed)`.
+        `reduce` sums each step's A A^T u over the processes of a sharded
+        solve (`core.sharding`).
         """
         u = start_vector(self.dual_dim, seed, self.instance.device)
         norm = None
         for _ in range(iters):
             u = self.apply_A(self.apply_AT(u / torch.linalg.vector_norm(u)))
+            if reduce is not None:
+                u = reduce(u)
             norm = torch.linalg.vector_norm(u)
         return norm  # ~ sigma_max^2
 

@@ -5,7 +5,8 @@ source) onto its feasible polytope, honouring a {0,1} mask of real entries.
 Padded entries come out exactly zero and never influence the projection of
 real entries.  These are the plain PyTorch versions: the dual-oracle kernel
 (`repro_torch/kernels/csrc/dual_oracle.cu`) carries the same Duchi pipeline
-in its `__device__` functions.
+in its `__device__` functions, and `UnitSimplexProjection(use_kernel=True)`
+runs the simplex kernel (`csrc/simplex_proj.cu`).
 """
 from __future__ import annotations
 
@@ -159,8 +160,17 @@ class ProjectionMap:
 class UnitSimplexProjection(ProjectionMap):
     radius: float = 1.0
     inequality: bool = True
+    # route through the fused simplex kernel (paper §4.3); on CPU tensors
+    # that is its plain version, `kernels.ref.simplex_ref`
+    use_kernel: bool = False
 
     def __call__(self, v, mask):
+        if self.use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            return kops.fused_project_simplex(
+                v, mask, radius=self.radius, inequality=self.inequality
+            )
         return project_simplex(
             v, mask, radius=self.radius, inequality=self.inequality
         )

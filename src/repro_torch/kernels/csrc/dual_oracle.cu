@@ -40,22 +40,16 @@
 // same inputs on the same card give bitwise the same outputs.  Mask-zero
 // (padded) slots produce x == 0 exactly and add nothing.
 //
-// The projection and the primal step are __device__ functions so that the
-// standalone primal kernel (dual_primal.py) and simplex kernel
-// (simplex_proj.py) can reuse them when they are ported.
+// The primal step and the projection are the __device__ functions of
+// primal_common.cuh, shared with the standalone primal kernel
+// (dual_primal.cu) and simplex kernel (simplex_proj.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "primal_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1.0e30f;  // finite stand-in for -inf, as the reference
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxFamilies = 8;   // ops/dual_oracle.py MAX_FAMILIES
 constexpr int kMaxWarps = 8;      // dual_oracle.py MAX_WARPS
 constexpr int kUnroll = 4;        // dual_oracle.py UNROLL
-constexpr int kMaxSmem = 232448;  // 227 KB opt-in shared memory per block
 
 struct Params {
   const int32_t* idx;        // [n, L]
@@ -74,97 +68,6 @@ struct Params {
   int inequality, lam_in_smem;
   int scan_chunk;      // wide rows: chunk of the cumsum order, <= L
 };
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <typename T> struct OutType { using type = T; };
-template <> struct OutType<int8_t> { using type = float; };
-
-// One slab slot, widened to fp32.
-struct Slot {
-  int idx;
-  float coeff[kMaxFamilies];
-  float cost, mask;
-};
-
-template <typename T>
-__device__ __forceinline__ void load_slot(const Params& p, const float* scale,
-                                          float cost_scale, long long s,
-                                          long long slots, bool valid, Slot& out) {
-  const T* coeff = static_cast<const T*>(p.coeff);
-  out.idx = valid ? p.idx[s] : 0;
-  out.cost = valid ? widen(static_cast<const T*>(p.cost)[s]) * cost_scale : 0.f;
-  out.mask = valid ? widen(static_cast<const T*>(p.mask)[s]) : 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) {
-    out.coeff[k] = (k < p.m && valid) ? widen(coeff[k * slots + s]) * scale[k] : 0.f;
-  }
-}
-
-// Primal candidate v = -(A^T lam + c) * (1/gamma) at one slot (eq. 3 before
-// the projection), rounded exactly as the plain version computes it: the
-// family products summed in order without fused multiply-adds, then one
-// multiply by the fp32 reciprocal of gamma.  `lam` is generic: shared memory
-// or global.
-__device__ __forceinline__ float primal_candidate(const Slot& s, const float* lam,
-                                                  int m, int J, float ginv) {
-  float atl = __fmul_rn(s.coeff[0], lam[s.idx]);
-#pragma unroll
-  for (int k = 1; k < kMaxFamilies; ++k) {
-    if (k < m) atl = __fadd_rn(atl, __fmul_rn(s.coeff[k], lam[k * J + s.idx]));
-  }
-  return __fmul_rn(-__fadd_rn(atl, s.cost), ginv);
-}
-
-// Masked Duchi projection of a row held by a segment of 2^LOGL lanes of one
-// warp (lane `pos` of the segment holds entry `pos`).  Same pipeline as the
-// reference: descending bitonic sort, inclusive scan, cutoff rho from the
-// monotone condition, threshold theta, subtract-and-clamp; the inequality
-// variant returns feasible rows clamped only.  All 32 lanes must call it.
-template <int LOGL>
-__device__ __forceinline__ float simplex_segment(float v, float maskf, int pos,
-                                                 float radius, bool inequality) {
-  constexpr int L = 1 << LOGL;
-  const float vm = maskf > 0.f ? v : kNeg;
-  float u = vm;
-#pragma unroll
-  for (int k = 2; k <= L; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const float other = __shfl_xor_sync(kFull, u, j);
-      const bool asc = (pos & k) != 0;
-      const bool lower = (pos & j) == 0;
-      u = (lower == asc) ? fminf(u, other) : fmaxf(u, other);
-    }
-  }
-  // inclusive scan in Sklansky order (the order of PyTorch's CUDA cumsum
-  // along rows of up to 32, so the cutoff sums round as the plain version's)
-  const int base = (threadIdx.x & 31) & ~(L - 1);
-  float css = u;
-#pragma unroll
-  for (int s = 1; s < L; s <<= 1) {
-    const float t = __shfl_sync(kFull, css, base + (pos & ~(2 * s - 1)) + s - 1);
-    if (pos & s) css += t;
-  }
-  int cnt = (u * static_cast<float>(pos + 1) > css - radius) ? 1 : 0;
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-  const int rho = max(cnt, 1);
-  const float css_rho = __shfl_sync(kFull, css, base + rho - 1);
-  const float theta = (css_rho - radius) / static_cast<float>(rho);
-  const float w_eq = fmaxf(vm - theta, 0.f) * maskf;
-  if (!inequality) return w_eq;
-  const float w0 = fmaxf(v, 0.f) * maskf;
-  float s0 = w0;
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1) s0 += __shfl_xor_sync(kFull, s0, o);
-  return s0 <= radius ? w0 : w_eq;
-}
 
 // Deterministic add of one warp step into a histogram that only this warp
 // writes (its private one, or the bins it owns in the block's).  Lanes with
@@ -207,17 +110,7 @@ __device__ __forceinline__ Smem prologue(const Params& p, float* smem, int copie
   Smem s;
   float* base = smem;
   if (p.lam_in_smem) {
-    // 16-byte loads, several in flight per thread: staging lam is a fixed
-    // cost of every block and dominates the small buckets' launches
-    if ((mJ & 3) == 0 && (reinterpret_cast<uintptr_t>(p.lam) & 15) == 0) {
-      const float4* src = reinterpret_cast<const float4*>(p.lam);
-      float4* dst = reinterpret_cast<float4*>(base);
-#pragma unroll 4
-      for (int e = threadIdx.x; e < mJ / 4; e += blockDim.x) dst[e] = src[e];
-    } else {
-#pragma unroll 4
-      for (int e = threadIdx.x; e < mJ; e += blockDim.x) base[e] = p.lam[e];
-    }
+    stage_lam(p.lam, mJ, base);
     s.lam = base;
     base += mJ;
   } else {
@@ -262,14 +155,6 @@ __device__ __forceinline__ void epilogue(const Params& p, const Smem& s, int cop
     p.scal[2 * blockIdx.x] = a;
     p.scal[2 * blockIdx.x + 1] = b;
   }
-}
-
-__device__ __forceinline__ void load_scales(const Params& p, float (&scale)[kMaxFamilies],
-                                            float& cost_scale) {
-#pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k)
-    scale[k] = (p.coeff_scale != nullptr && k < p.m) ? p.coeff_scale[k] : 1.f;
-  cost_scale = p.cost_scale != nullptr ? p.cost_scale[0] : 1.f;
 }
 
 // Rows of width L = 2^LOGL <= 32.  A warp step covers 32 consecutive slots,
@@ -356,7 +241,8 @@ dual_oracle_narrow(Params p) {
 }
 
 // Rows of width 64 <= L <= 8192: one warp per row, the row's candidates
-// sorted and scanned in the warp's two shared-memory scratch rows.
+// sorted and scanned in the warp's two shared-memory scratch rows
+// (simplex_wide_cut), then computed again for x and the partials.
 template <typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 dual_oracle_wide(Params p) {
@@ -378,63 +264,19 @@ dual_oracle_wide(Params p) {
   for (long long row = static_cast<long long>(blockIdx.x) * warps + warp; row < p.n;
        row += stride) {
     const long long base = row * L;
-    float s0 = 0.f;
+    const RowCut cut = simplex_wide_cut(
+        [&](int q, float& v, float& maskf) {
+          Slot s;
+          load_slot<T>(p, scale, cost_scale, base + q, slots, true, s);
+          v = primal_candidate(s, sm.lam, p.m, p.J, p.ginv);
+          maskf = s.mask;
+        },
+        A, C, L, p.scan_chunk, p.radius, p.inequality != 0);
     for (int q = lane; q < L; q += 32) {
       Slot s;
       load_slot<T>(p, scale, cost_scale, base + q, slots, true, s);
       const float v = primal_candidate(s, sm.lam, p.m, p.J, p.ginv);
-      A[q] = s.mask > 0.f ? v : kNeg;
-      s0 += fmaxf(v, 0.f) * s.mask;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s0 += __shfl_xor_sync(kFull, s0, o);
-    __syncwarp();
-    // descending bitonic sort of A: pair (q, q ^ j), q the lower index
-    for (int k = 2; k <= L; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int q = lane; q < L; q += 32) {
-          const int r = q ^ j;
-          if (r > q) {
-            const float a = A[q], b = A[r];
-            const bool asc = (q & k) != 0;
-            A[q] = asc ? fminf(a, b) : fmaxf(a, b);
-            A[r] = asc ? fmaxf(a, b) : fminf(a, b);
-          }
-        }
-        __syncwarp();
-      }
-    }
-    // inclusive scan into C, chunk by chunk in the order of PyTorch's CUDA
-    // cumsum: the previous chunks' total enters the chunk's first element,
-    // then a Sklansky scan within the chunk
-    for (int q = lane; q < L; q += 32) C[q] = A[q];
-    __syncwarp();
-    for (int c0 = 0; c0 < L; c0 += p.scan_chunk) {
-      if (c0 > 0 && lane == 0) C[c0] += C[c0 - 1];
-      __syncwarp();
-      for (int s = 1; s < p.scan_chunk; s <<= 1) {
-        for (int q = lane; q < p.scan_chunk; q += 32) {
-          if (q & s) C[c0 + q] += C[c0 + (q & ~(2 * s - 1)) + s - 1];
-        }
-        __syncwarp();
-      }
-    }
-    // cutoff: count the monotone Duchi condition over the sorted row
-    int cnt = 0;
-    for (int q = lane; q < L; q += 32) {
-      const bool cond = A[q] * static_cast<float>(q + 1) > C[q] - p.radius;
-      cnt += __popc(__ballot_sync(kFull, cond));
-    }
-    const int rho = max(cnt, 1);
-    const float theta = (C[rho - 1] - p.radius) / static_cast<float>(rho);
-    const bool feasible = p.inequality != 0 && s0 <= p.radius;
-    __syncwarp();
-    for (int q = lane; q < L; q += 32) {
-      Slot s;
-      load_slot<T>(p, scale, cost_scale, base + q, slots, true, s);
-      const float v = primal_candidate(s, sm.lam, p.m, p.J, p.ginv);
-      const float vm = s.mask > 0.f ? v : kNeg;
-      const float x = feasible ? fmaxf(v, 0.f) * s.mask : fmaxf(vm - theta, 0.f) * s.mask;
+      const float x = simplex_wide_apply(v, s.mask, cut);
       store(static_cast<TO*>(p.x) + base + q, x);
       lin += s.cost * x;
       sq += x * x;
@@ -447,26 +289,16 @@ dual_oracle_wide(Params p) {
   epilogue(p, sm, warps, lin, sq);
 }
 
-template <typename K>
-cudaError_t launch(K kernel, const Params& p, int grid, int warps, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, warps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t dispatch(const Params& p, int grid, int warps, size_t smem, cudaStream_t st) {
   switch (p.L) {
-    case 1: return launch(dual_oracle_narrow<T, 0>, p, grid, warps, smem, st);
-    case 2: return launch(dual_oracle_narrow<T, 1>, p, grid, warps, smem, st);
-    case 4: return launch(dual_oracle_narrow<T, 2>, p, grid, warps, smem, st);
-    case 8: return launch(dual_oracle_narrow<T, 3>, p, grid, warps, smem, st);
-    case 16: return launch(dual_oracle_narrow<T, 4>, p, grid, warps, smem, st);
-    case 32: return launch(dual_oracle_narrow<T, 5>, p, grid, warps, smem, st);
-    default: return launch(dual_oracle_wide<T>, p, grid, warps, smem, st);
+    case 1: return launch_kernel(dual_oracle_narrow<T, 0>, p, grid, warps, smem, st);
+    case 2: return launch_kernel(dual_oracle_narrow<T, 1>, p, grid, warps, smem, st);
+    case 4: return launch_kernel(dual_oracle_narrow<T, 2>, p, grid, warps, smem, st);
+    case 8: return launch_kernel(dual_oracle_narrow<T, 3>, p, grid, warps, smem, st);
+    case 16: return launch_kernel(dual_oracle_narrow<T, 4>, p, grid, warps, smem, st);
+    case 32: return launch_kernel(dual_oracle_narrow<T, 5>, p, grid, warps, smem, st);
+    default: return launch_kernel(dual_oracle_wide<T>, p, grid, warps, smem, st);
   }
 }
 

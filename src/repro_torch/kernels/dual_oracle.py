@@ -29,6 +29,7 @@ __all__ = [
     "LaunchPlan",
     "MAX_FAMILIES",
     "MAX_FUSED_LENGTH",
+    "check_slab",
     "dual_oracle",
     "launches",
     "plan_launch",
@@ -131,9 +132,44 @@ def _kernel():
     return _lib
 
 
-def _require(ok: bool, msg: str) -> None:
+def _require(ok: bool, msg: str, kernel: str = "dual_oracle") -> None:
     if not ok:
-        raise ValueError(f"dual_oracle kernel: {msg}")
+        raise ValueError(f"{kernel} kernel: {msg}")
+
+
+def check_slab(kernel, idx, coeff, cost, mask, lam, J, coeff_scale, cost_scale):
+    """Raises `ValueError` on what the slab kernels (the oracle and the
+    primal step) do not take; returns whether the slab is int8."""
+    dev = cost.device
+    need = lambda ok, msg: _require(ok, msg, kernel)
+    need(dev.type == "cuda", f"takes CUDA tensors, got {dev}")
+    n, L = cost.shape
+    m = coeff.shape[0]
+    dtype = cost.dtype
+    need(dtype in _DTYPE_CODES, f"unsupported slab dtype {dtype}")
+    need(coeff.dtype == dtype and mask.dtype == dtype,
+         "coeff, cost and mask must share one dtype")
+    need(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
+    need(tuple(idx.shape) == (n, L) and tuple(mask.shape) == (n, L)
+         and tuple(coeff.shape) == (m, n, L), "inconsistent slab shapes")
+    need(L >= 1 and L & (L - 1) == 0 and L <= MAX_FUSED_LENGTH,
+         f"width {L} must be a power of two <= {MAX_FUSED_LENGTH}")
+    need(1 <= m <= MAX_FAMILIES, f"{m} families, at most {MAX_FAMILIES}")
+    need(lam.dtype == torch.float32 and lam.numel() == m * J,
+         f"lam must be fp32 with {m * J} entries")
+    quantized = dtype == torch.int8
+    need(quantized == (coeff_scale is not None)
+         and quantized == (cost_scale is not None),
+         "int8 slabs need coeff_scale and cost_scale; float slabs take none")
+    tensors = [idx, coeff, cost, mask, lam]
+    if quantized:
+        need(coeff_scale.dtype == torch.float32 and coeff_scale.numel() == m
+             and cost_scale.dtype == torch.float32 and cost_scale.numel() == 1,
+             "scales must be fp32 [m, 1, 1] and [1, 1]")
+        tensors += [coeff_scale, cost_scale]
+    need(all(t.device == dev for t in tensors), "all tensors on one device")
+    need(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
+    return quantized
 
 
 def dual_oracle(
@@ -158,34 +194,10 @@ def dual_oracle(
     """
     global launches
     dev = cost.device
-    _require(dev.type == "cuda", f"takes CUDA tensors, got {dev}")
     n, L = cost.shape
-    m, J = coeff.shape[0], num_destinations
-    dtype = cost.dtype
-    _require(dtype in _DTYPE_CODES, f"unsupported slab dtype {dtype}")
-    _require(coeff.dtype == dtype and mask.dtype == dtype,
-             "coeff, cost and mask must share one dtype")
-    _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    _require(tuple(idx.shape) == (n, L) and tuple(mask.shape) == (n, L)
-             and tuple(coeff.shape) == (m, n, L), "inconsistent slab shapes")
-    _require(L >= 1 and L & (L - 1) == 0 and L <= MAX_FUSED_LENGTH,
-             f"width {L} must be a power of two <= {MAX_FUSED_LENGTH}")
-    _require(1 <= m <= MAX_FAMILIES, f"{m} families, at most {MAX_FAMILIES}")
-    _require(lam.dtype == torch.float32 and lam.numel() == m * J,
-             f"lam must be fp32 with {m * J} entries")
-    quantized = dtype == torch.int8
-    _require(quantized == (coeff_scale is not None)
-             and quantized == (cost_scale is not None),
-             "int8 slabs need coeff_scale and cost_scale; float slabs take none")
-    tensors = [idx, coeff, cost, mask, lam]
-    if quantized:
-        _require(coeff_scale.dtype == torch.float32 and coeff_scale.numel() == m
-                 and cost_scale.dtype == torch.float32 and cost_scale.numel() == 1,
-                 "scales must be fp32 [m, 1, 1] and [1, 1]")
-        tensors += [coeff_scale, cost_scale]
-    _require(all(t.device == dev for t in tensors), "all tensors on one device")
-    _require(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
-
+    m, J, dtype = coeff.shape[0], num_destinations, cost.dtype
+    quantized = check_slab("dual_oracle", idx, coeff, cost, mask, lam, J,
+                           coeff_scale, cost_scale)
     props = torch.cuda.get_device_properties(dev)
     plan = plan_launch(n, L, m, J, props.multi_processor_count)
     out_dtype = torch.float32 if quantized else dtype

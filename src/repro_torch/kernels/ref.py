@@ -4,8 +4,9 @@
 threshold -> subtract-and-clamp); `dual_primal_ref` is the unfused primal
 step x = Pi_simplex( -(A^T lam + c) * (1/gamma) ) for one bucket slab;
 `dual_oracle_ref` is the whole one-pass oracle (primal slab + this bucket's
-A x histogram + the c'x / ||x||^2 partials).  They are the path every CPU
-tensor takes and what the CUDA kernel is held against on the card.
+A x histogram + the c'x / ||x||^2 partials).  They are the plain versions
+of the three CUDA kernels: the path every CPU tensor takes and what each
+kernel is held against on the card.
 
 Narrow slabs follow the kernel's contract: widened to fp32 on load (int8
 times its per-bucket scales), every reduction in fp32, and x written back in
@@ -39,8 +40,10 @@ def simplex_ref(
     *,
     inequality: bool = True,
 ) -> torch.Tensor:
-    """Reference masked Duchi projection (identical semantics to the kernel)."""
-    return project_simplex(v, mask, radius, inequality=inequality)
+    """Reference masked Duchi projection (identical semantics to the kernel):
+    narrow rows are projected in fp32 and returned in v's dtype."""
+    x = project_simplex(_acc32(v), _acc32(mask), radius, inequality=inequality)
+    return x if x.dtype == v.dtype else x.to(v.dtype)
 
 
 def dual_primal_ref(

@@ -26,7 +26,7 @@ from repro.instances.buckets import convert_bucket as jax_convert_bucket
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import convert
-from repro_torch.core.objective import MatchingObjective, binned_segment_sum
+from repro_torch.core.objective import MatchingObjective, binned_segment_sum, segment_plan
 from repro_torch.kernels import dual_oracle as kdo
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -177,6 +177,21 @@ def test_binned_segment_sum_matches_scatter():
     for k in range(m):
         np.add.at(want, (k, idx.ravel()), contrib[k].ravel())
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_binned_segment_sum_is_index_add_in_slot_order():
+    """The fixed-order sum adds each bin's slots in slot order: on the CPU
+    bitwise what `index_add_` gives, empty bins 0, with or without a plan."""
+    rng = np.random.default_rng(2)
+    m, n, L, J = 2, 300, 16, 50
+    idx = torch.from_numpy(rng.integers(0, J - 5, size=(n, L)).astype(np.int32))
+    contrib = torch.from_numpy(rng.normal(size=(m, n, L)).astype(np.float32))
+    seg = (idx.reshape(1, -1).long() + torch.arange(m)[:, None] * J).reshape(-1)
+    want = torch.zeros(m * J).index_add_(0, seg, contrib.reshape(-1)).reshape(m, J)
+    plan = segment_plan(idx, m, J)
+    assert torch.equal(binned_segment_sum(idx, contrib, J, plan), want)
+    assert torch.equal(binned_segment_sum(idx, contrib, J), want)
+    assert not want[:, J - 5:].any()
 
 
 @pytest.fixture(scope="module")

@@ -122,8 +122,8 @@ def test_cli_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--shards", "2"], ["--engine", "pdhg"], ["--fused-kernel"],
-     ["--formulation", "capacity-cap"]],
+    [["--formulation", "fairness-floor"], ["--engine", "pdhg"],
+     ["--formulation", "budget-pacing"], ["--formulation", "capacity-cap"]],
 )
 def test_cli_refuses_unported_options(capsys, flags):
     with pytest.raises(SystemExit) as exc:
