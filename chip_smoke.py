@@ -6,19 +6,26 @@
 Phases, each printing one line before the last:
   1. device: name, count, and `nvidia-smi` name and power limit;
   2. build: the three hand-written kernels from src/repro_torch/kernels/csrc,
-     one nvcc each, all started together;
+     one nvcc each, all started together; kernel_info: each kernel's
+     registers and spills (ptxas, and the runtime's attributes), its
+     resident blocks per SM at the main path's shapes, and whether the
+     oracle's 64-bit shared-memory add is a native instruction (SASS);
   3. sweep: the dual-oracle kernel against its plain PyTorch version on the
      card over widths, families, slab dtypes, gammas and both simplex
-     variants, padded rows and repeated idx included; then bitwise
-     run-to-run equality of the kernel;
+     variants, padded rows and repeated idx included, with A x held bitwise
+     equal to the fixed-point plain sum and within atol 3e-5 + rtol 1e-5 of
+     the fp32 plain sum, on both sides of the shared-memory capacity
+     boundary, and over whole calls of several buckets; then bitwise
+     equality of two calls and of three grid sizes;
      sweep2 / sweep3: the primal-step and simplex kernels the same way over
      every power-of-two width up to 8192, two radii included, with the
      primal kernel's x held bitwise equal to the oracle's, and the primal
      kernel also at m*J past shared memory (lam read through L1/L2);
   4. main path: the one-shot fused-oracle AGD solve of
      `python -m repro_torch.launch.solve` in-process at 1M sources x 10k
-     destinations, with the kernel's launch count checked against
-     buckets x oracle calls, fused-vs-plain `calculate` at the final and at
+     destinations, with the kernel's launch count checked against the
+     oracle calls (one oracle launch and one finalize each), fused-vs-plain
+     `calculate` at the final and at
      random duals, and a small solve on the card against the same on the CPU;
      path2: the same instance solved by `DistributedMaximizer` (world size
      1 over NCCL) with the fused primal kernel, against the main path and
@@ -29,7 +36,7 @@ Phases, each printing one line before the last:
      over gloo, against one process;
   5. times: each kernel's output at the main path's shapes held against
      its plain version; each kernel, its plain version and its HBM bound
-     there, by CUDA events; the all-reduce of the sharded solve at
+     there, per bucket and per whole call, by CUDA events; the all-reduce of the sharded solve at
      world size 1; and the device's busy share over a profiled window of
      AGD iterations (torch.profiler).
 Every path is driven with all launch counters set to 0 just before it and
@@ -95,18 +102,36 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int = 200) -> float:
+    """Mean host time to enqueue one call of `fn` (no synchronisation inside
+    the window): the host's share of a call that the device runs behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
 def reset_counts() -> None:
     """Every kernel's launch counter and the width rule's to 0."""
     from repro_torch.kernels import dual_oracle, dual_primal, ops, simplex_proj
 
-    dual_oracle.launches = dual_primal.launches = simplex_proj.launches = 0
+    dual_oracle.launches = dual_oracle.finalize_launches = 0
+    dual_primal.launches = simplex_proj.launches = 0
     ops.width_routed = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import dual_oracle, dual_primal, ops, simplex_proj
 
-    return {"dual_oracle": dual_oracle.launches, "dual_primal": dual_primal.launches,
+    return {"dual_oracle": dual_oracle.launches,
+            "dual_oracle_finalize": dual_oracle.finalize_launches,
+            "dual_primal": dual_primal.launches,
             "simplex_proj": simplex_proj.launches, "width_routed": ops.width_routed}
 
 
@@ -159,63 +184,175 @@ def oracle_args(b, lam, gamma, J, inequality):
     )
 
 
+def ptxas_summary(logs: dict) -> dict:
+    """Registers and spill stores of every kernel entry, from the build's
+    `nvcc -Xptxas -v` output, by demangled name (a library built by an
+    earlier process of the same checkout has no output here)."""
+    out = {k: "not built in this process" for k in KERNELS}
+    for kernel, log in logs.items():
+        rows, name = {}, None
+        for ln in log.splitlines():
+            if mm := re.search(r"Compiling entry function '([^']+)'", ln):
+                name = mm.group(1)
+                rows[name] = [None, None]
+            elif name and (mm := re.search(r"(\d+) bytes spill stores", ln)):
+                rows[name][1] = int(mm.group(1))
+            elif name and (mm := re.search(r"Used (\d+) registers", ln)):
+                rows[name][0] = int(mm.group(1))
+        try:
+            names = subprocess.run(["c++filt"], input="\n".join(rows), capture_output=True,
+                                   text=True, timeout=60).stdout.splitlines()
+        except OSError:
+            names = list(rows)
+        short = [re.sub(r"\(anonymous namespace\)::|\(.*\)$|^void ", "", n) for n in names]
+        out[kernel] = dict(zip(short, rows.values())) if len(short) == len(rows) else rows
+    return out
+
+
+def phase_kernel_info(ptxas: dict) -> dict:
+    """Registers, spills and resident blocks per SM of the oracle's and the
+    primal step's instantiations (the runtime's attributes, at the main
+    path's m*J = 10k layout), ptxas's registers and spill stores of every
+    kernel entry, and the SASS opcode of the oracle's shared int64 add."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dual_oracle as kdo
+
+    runtime = {}
+    for kernel, layout in (("dual_oracle", kdo.oracle_layout), ("dual_primal", kdo.primal_layout)):
+        for M in (1, 2, 4, 8):
+            for L in (8, 8192):
+                lay = layout(L, M, 10_000)
+                info = kdo.kernel_info(kernel, torch.float32, M, L > 32, 32 * lay.warps,
+                                       lay.smem_bytes)
+                runtime[f"{kernel} {'wide' if L > 32 else 'narrow'} fp32 M={M}"] = {
+                    "threads": 32 * lay.warps, "smem_bytes": lay.smem_bytes, **info}
+    sass = subprocess.run(
+        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(build._library("dual_oracle"))], capture_output=True, text=True, timeout=300,
+    ).stdout
+    shared = sorted({mm.group(0) for mm in re.finditer(r"ATOMS\.[A-Z0-9.]+", sass)})
+    out = {"phase": "kernel_info", "runtime_at_mJ_10000": runtime, "ptxas": ptxas,
+           "shared_int64_add_sass": shared,
+           "shared_int64_add_native": any(op.startswith("ATOMS.ADD") and "64" in op
+                                          for op in shared)}
+    emit(out)
+    return out
+
+
 def phase_sweep(device) -> dict:
+    """The oracle kernel against its plain version: one call per case of one
+    bucket or of several (one narrow launch, one wide per bucket wider than
+    32, one finalize), x within X_ATOL (and counted where bitwise), A x
+    bitwise the fixed-point plain sum and within atol 3e-5 + rtol 1e-5 of
+    the fp32 plain sum, c'x and ||x||^2 within the same."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import dual_oracle as kdo
     from repro_torch.kernels import ref as kref
 
-    x_atol = X_ATOL
-    worst = {d: {"x": 0.0, "partials": 0.0} for d in x_atol}
-    cases = exact = 0
+    worst = {d: {"x": 0.0, "partials": 0.0} for d in X_ATOL}
+    counts = {"cases": 0, "x_exact": 0, "ax_fixed_point_exact": 0}
     bad = []
     rng = np.random.default_rng(0)
+
+    def check(buckets, lam, J, dtype, gamma, inequality, tag):
+        plan = kdo.plan_slabs("dual_oracle", buckets, J, inequality=inequality)
+        xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma)
+        want = kref.dual_oracle_call_ref(buckets, lam, gamma, J, inequality=inequality)
+        fixed = kref.fixed_point_hist(buckets, lam, gamma, J, plan.shift,
+                                      inequality=inequality)
+        torch.cuda.synchronize()
+        tag = f"{tag} {dtype} gamma={gamma} ineq={inequality}"
+        exact = True
+        for x, w in zip(xs, want[0]):
+            ex = float((x.float() - w.float()).abs().max()) if x.numel() else 0.0
+            if x.dtype != w.dtype or not ex <= X_ATOL[dtype]:
+                bad.append(f"x {x.dtype} max error {ex} ({tag})")
+            if x.numel() and float(x[:5].float().abs().max()) != 0.0:
+                bad.append(f"padded rows not exactly zero ({tag})")
+            worst[dtype]["x"] = max(worst[dtype]["x"], ex)
+            exact &= bool(torch.equal(x, w))
+        for a, w, name in zip((ax, lin, sq), want[1:], ("ax", "lin", "sq")):
+            err = (a - w).abs()
+            if not bool((err <= 3e-5 + 1e-5 * w.abs()).all()):
+                bad.append(f"{name} max error {float(err.max())} ({tag})")
+            worst[dtype]["partials"] = max(worst[dtype]["partials"], float(err.max()))
+        fixed_exact = bool(torch.equal(ax, fixed))
+        if not fixed_exact:
+            bad.append(f"A x not bitwise the fixed-point sum: "
+                       f"{float((ax - fixed).abs().max())} ({tag})")
+        counts["cases"] += 1
+        counts["x_exact"] += int(exact)
+        counts["ax_fixed_point_exact"] += int(fixed_exact)
+        return plan
+
+    def bucket(n, L, m, J, dtype):
+        return random_bucket(rng, n, L, m, J, dtype, device, 5)
+
+    # one bucket a call: every width class, m = 1 and 3, lam staged or not
     shapes = [(L, 1000 if L <= 64 else (37 if L <= 512 else 9), 64)
               for L in (1, 4, 8, 16, 32, 64, 512, 8192)]
-    shapes += [(8, 20000, 10000), (16, 3000, 40000)]  # lam in smem / in L2
+    shapes += [(8, 20000, 10000), (16, 3000, 40000)]
     for L, n, J in shapes:
         for m in ((1, 3) if J == 64 else (1,)):
-            for dtype in x_atol:
-                b, lam = random_bucket(rng, n, L, m, J, dtype, device, 5)
+            for dtype in X_ATOL:
+                b, lam = bucket(n, L, m, J, dtype)
                 for gamma in (0.01, 1.0, 100.0):
                     for inequality in (True, False):
-                        args, kw = oracle_args(b, lam, gamma, J, inequality)
-                        x, hist_p, scal_p = kdo.dual_oracle(*args, **kw)
-                        got = (x, hist_p.sum(0), scal_p[:, 0].sum(), scal_p[:, 1].sum())
-                        want = kref.dual_oracle_ref(*args[:6], J, **{
-                            k: v for k, v in kw.items() if k != "num_destinations"})
-                        torch.cuda.synchronize()
-                        tag = f"L={L} n={n} J={J} m={m} {dtype} gamma={gamma} ineq={inequality}"
-                        if x.dtype != want[0].dtype:
-                            bad.append(f"x dtype {x.dtype} != {want[0].dtype} ({tag})")
-                        ex = float((x.float() - want[0].float()).abs().max())
-                        if not ex <= x_atol[dtype]:
-                            bad.append(f"x max error {ex} > {x_atol[dtype]} ({tag})")
-                        if float(x[:5].float().abs().max()) != 0.0:
-                            bad.append(f"padded rows not exactly zero ({tag})")
-                        for a, w, name in zip(got[1:], want[1:], ("hist", "lin", "sq")):
-                            err = (a - w).abs()
-                            if not bool((err <= 3e-5 + 1e-5 * w.abs()).all()):
-                                bad.append(f"{name} max error {float(err.max())} ({tag})")
-                            worst[dtype]["partials"] = max(
-                                worst[dtype]["partials"], float(err.max()))
-                        worst[dtype]["x"] = max(worst[dtype]["x"], ex)
-                        exact += int(torch.equal(x, want[0]))
-                        cases += 1
+                        check([b], lam, J, dtype, gamma, inequality, f"L={L} n={n} J={J} m={m}")
+    # both sides of the shared-memory histogram's capacity, and the largest
+    # m*J the previous design took (narrow 56,000, wide 41,000 at L = 8192)
+    boundary = []
+    for L, n, J in ((8, 2000, 29_000), (8, 2000, 29_100), (8, 2000, 56_000),
+                    (8192, 9, 20_000), (8192, 9, 21_000), (8192, 9, 41_000)):
+        for dtype in X_ATOL:
+            b, lam = bucket(n, L, 1, J, dtype)
+            for gamma, inequality in ((0.01, True), (1.0, False)):
+                plan = check([b], lam, J, dtype, gamma, inequality, f"L={L} n={n} J={J} m=1")
+        lay = plan.launches[0].layout
+        boundary.append({"L": L, "J": J, "hist": ["smem", "global"][lay.hist_mode],
+                         "lam_in_smem": lay.lam_in_smem, "warps": lay.warps,
+                         "smem_bytes": lay.smem_bytes})
+    sides = {(row["L"] > 32, row["hist"]) for row in boundary}
+    if sides != {(False, "smem"), (False, "global"), (True, "smem"), (True, "global")}:
+        fail(f"capacity sweep missed a side of the boundary: {boundary}")
+    # whole calls: widths 1-32 in one launch, 64 in a second, m = 1, 2, 3
+    for m in (1, 2, 3):
+        for dtype in X_ATOL:
+            J = 64
+            buckets = [bucket(300 + 17 * L, L, m, J, dtype)[0] for L in (1, 2, 4, 8, 16, 32, 64)]
+            lam = torch.from_numpy(rng.random(m * J).astype(np.float32)).to(device)
+            for gamma in (0.01, 1.0, 100.0):
+                for inequality in (True, False):
+                    check(buckets, lam, J, dtype, gamma, inequality, f"whole call m={m}")
     if bad:
-        fail(f"{len(bad)} of {cases} sweep cases out of tolerance: {bad[:8]}")
-    # run-to-run: the same input twice gives bitwise the same outputs
-    b, lam = random_bucket(rng, 4000, 32, 3, 64, "float32", device, 5)
-    args, kw = oracle_args(b, lam, 1.0, 64, True)
-    first, second = kdo.dual_oracle(*args, **kw), kdo.dual_oracle(*args, **kw)
-    bitwise = all(torch.equal(a, c) for a, c in zip(first, second))
-    if not bitwise:
-        fail("kernel outputs differ between two calls on one input")
-    out = {"phase": "sweep", "cases": cases, "x_bitwise_equal_cases": exact,
-           "worst_abs_err": worst,
-           "bitwise_equal_rerun": bitwise}
+        fail(f"{len(bad)} of {counts['cases']} sweep cases out of tolerance: {bad[:8]}")
+    # the same input twice, and under two other grids: bitwise the same
+    J = 10_000
+    buckets = [bucket(n, L, 1, J, "float32")[0] for L, n in ((4, 3000), (8, 40_000), (16, 30_000))]
+    lam = torch.from_numpy(rng.random(J).astype(np.float32)).to(device)
+    plans = [kdo.plan_slabs("dual_oracle", buckets, J, grid=g) for g in (None, 7, 1)]
+    first, second = kdo.oracle_call(plans[0], lam, 0.5), kdo.oracle_call(plans[0], lam, 0.5)
+    rerun = (all(torch.equal(a, c) for a, c in zip(first[0], second[0]))
+             and all(torch.equal(a, c) for a, c in zip(first[1:], second[1:])))
+    grids = [kdo.oracle_call(p, lam, 0.5) for p in plans[1:]]
+    across = all(torch.equal(g[1], first[1]) and all(torch.equal(a, c) for a, c in
+                                                    zip(g[0], first[0])) for g in grids)
+    out = {"phase": "sweep", "cases": counts["cases"],
+           "x_bitwise_equal_cases": counts["x_exact"],
+           "ax_bitwise_fixed_point_cases": counts["ax_fixed_point_exact"],
+           "worst_abs_err": worst, "capacity_boundary": boundary,
+           "bitwise_equal_rerun": rerun,
+           "grids": [p.launches[0].grid for p in plans],
+           "ax_bitwise_equal_across_grids": across}
     emit(out)
+    if not rerun:
+        fail("kernel outputs differ between two calls on one input")
+    if not across:
+        fail("A x or x differ between grid sizes")
     return out
 
 
@@ -238,7 +375,6 @@ def phase_sweep2(device) -> dict:
     counts = {"cases": 0, "exact_plain": 0, "exact_oracle": 0, "lam_in_l2": 0}
     bad = []
     rng = np.random.default_rng(1)
-    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     def check(L, n, m, J, with_oracle):
         for dtype in X_ATOL:
@@ -271,16 +407,36 @@ def phase_sweep2(device) -> dict:
         for m in (1, 2, 3):
             check(L, sweep_rows(L), m, 64, True)
     for L, n, m, J in ((16, 3000, 1, 70_000), (256, 37, 3, 20_000)):
-        if kdp.plan_launch(n, L, m, J, num_sms).lam_in_smem:
+        if kdo.primal_layout(L, m, J).lam_in_smem:
             fail(f"primal kernel plans lam in shared memory at L={L} m={m} J={J}")
         check(L, n, m, J, False)
+    # whole calls: every width up to 32 in one launch, 64 and 512 one each;
+    # x bitwise the oracle's whole call
+    whole = whole_cases = 0
+    for m in (1, 2, 3):
+        for dtype in X_ATOL:
+            buckets = [random_bucket(rng, 200 + 13 * L if L <= 64 else 20, L, m, 64, dtype,
+                                     device, 5)[0] for L in (1, 2, 4, 8, 16, 32, 64, 512)]
+            lam = torch.from_numpy(rng.random(m * 64).astype(np.float32)).to(device)
+            primal = kdo.plan_slabs("dual_primal", buckets, 64)
+            oracle = kdo.plan_slabs("dual_oracle", buckets, 64)
+            if len(primal.launches) != 3:
+                fail(f"primal whole call of 8 buckets in {len(primal.launches)} launches")
+            for gamma in (0.01, 1.0):
+                xs = kdp.primal_call(primal, lam, gamma)
+                oxs = kdo.oracle_call(oracle, lam, gamma)[0]
+                whole += int(all(torch.equal(a, c) for a, c in zip(xs, oxs)))
+                whole_cases += 1
     cases, oracle_cases = counts["cases"], counts["cases"] - counts["lam_in_l2"]
     out = {"phase": "sweep2", "cases": cases, "lam_in_l2_cases": counts["lam_in_l2"],
            "worst_abs_err": worst,
            "x_bitwise_equal_plain_cases": counts["exact_plain"],
            "x_bitwise_equal_oracle_cases": counts["exact_oracle"],
-           "oracle_cases": oracle_cases}
+           "oracle_cases": oracle_cases,
+           "whole_call_cases": whole_cases, "whole_call_x_bitwise_equal_oracle": whole}
     emit(out)
+    if whole != whole_cases:
+        fail(f"primal whole call's x bitwise the oracle's in {whole} of {whole_cases} cases")
     if bad:
         fail(f"{len(bad)} of {cases} primal-kernel sweep cases out of tolerance: {bad[:8]}")
     if counts["exact_oracle"] != oracle_cases:
@@ -349,7 +505,8 @@ def phase_main_path(sources: int) -> dict:
     inst = r.instance
     res = r.result
     calls = r.total_iters + 1  # every AGD iteration plus the final calculate
-    expect = len(inst.buckets) * calls
+    plan = r.objective.kernel_plan("dual_oracle")
+    expect = len(plan.launches) * calls  # one launch a call: every bucket has L <= 32
     out = {
         "phase": "main_path", "sources": sources, "nnz": r.edges.nnz,
         "slots": sum(b.idx.numel() for b in inst.buckets),
@@ -358,7 +515,9 @@ def phase_main_path(sources: int) -> dict:
         "ms_per_iter": r.solve_s / r.total_iters * 1e3,
         "g": float(res.g), "value": r.value, "max_violation": r.violation,
         "sigma_sq": float(res.sigma_sq),
-        "kernel_launches": launches, "expected_launches": expect,
+        "kernel_launches": launches, "expected_launches": expect, "oracle_calls": calls,
+        "launches_per_call": len(plan.launches), "fixed_point_shift": plan.shift,
+        "narrow_launch": launch_summary(plan.launches[0]),
         "launch_counts": counts,
         "width_routed": width_routed,
     }
@@ -401,8 +560,10 @@ def phase_main_path(sources: int) -> dict:
     out.update(small_solve_card_vs_cpu_rel_lam=lam_rel, small_solve_card_vs_cpu_rel_g=g_rel)
     emit(out)
 
-    if launches != expect or counts["dual_primal"] or counts["simplex_proj"]:
-        fail(f"kernel launches {counts} != buckets x oracle calls {expect} of the oracle")
+    if (launches != expect or expect != calls or counts["dual_oracle_finalize"] != calls
+            or counts["dual_primal"] or counts["simplex_proj"]):
+        fail(f"kernel launches {counts}: expected {calls} oracle launches and finalizes, "
+             f"one each per oracle call")
     if width_routed != 0:
         fail(f"{width_routed} oracle calls left the kernel by the width rule")
     if not all(math.isfinite(out[k]) for k in ("g", "value", "max_violation")):
@@ -417,6 +578,15 @@ def phase_main_path(sources: int) -> dict:
     if not (lam_rel <= 1e-4 and g_rel <= 1e-5):
         fail(f"small solve on the card vs the CPU: rel lam {lam_rel}, rel g {g_rel}")
     return {"run": r, "summary": out}
+
+
+def launch_summary(lp) -> dict:
+    """What one planned launch runs with."""
+    return {"wide": lp.wide, "slabs": len(lp.slabs), "grid": lp.grid, "threads": lp.threads,
+            "smem_bytes": lp.layout.smem_bytes, "lam_in_smem": lp.layout.lam_in_smem,
+            "hist": ["smem", "global"][lp.layout.hist_mode],
+            "blocks_per_sm": lp.blocks_per_sm, "registers": lp.registers,
+            "spill_bytes": lp.spill_bytes}
 
 
 def rel_diff(a, b) -> float:
@@ -463,12 +633,13 @@ def phase_path2(main) -> dict:
         _make_calculate(dm.objective, dm.dist, dm.local.rhs), res.lam,
         cfg.gammas[-1], "path2")
     launch_dist.teardown()
-    expect = len(inst.buckets) * (r.total_iters + 1)
+    calls = r.total_iters + 1
+    expect = len(dm.objective.kernel_plan("dual_primal").launches) * calls
     out = {
         "phase": "path2", "world_size": 1, "backend": "nccl",
         "iterations": r.total_iters, "solve_s": solve_s,
         "ms_per_iter": solve_s / r.total_iters * 1e3,
-        "launch_counts": counts, "expected_launches": expect,
+        "launch_counts": counts, "expected_launches": expect, "primal_calls": calls,
         "allreduce_ms": allreduce_ms,
         "g": float(res.g), "value": value,
         "rel_g_vs_main": rel_diff(res.g, ref.g),
@@ -479,8 +650,9 @@ def phase_path2(main) -> dict:
     }
     emit(out)
     emit(profiled)
-    if counts["dual_primal"] != expect or counts["dual_oracle"] or counts["width_routed"]:
-        fail(f"path 2 launches {counts}, expected {expect} of the primal kernel")
+    if (counts["dual_primal"] != expect or expect != calls or counts["dual_oracle"]
+            or counts["dual_oracle_finalize"] or counts["width_routed"]):
+        fail(f"path 2 launches {counts}, expected {calls} of the primal kernel, one a call")
     if not (out["rel_g_vs_main"] <= 1e-5 and out["rel_lam_vs_main"] <= 1e-4
             and out["rel_value_vs_main"] <= 1e-4):
         fail(f"path 2 against the fused-oracle solve beyond g 1e-5, lam and value 1e-4: {out}")
@@ -535,7 +707,8 @@ def phase_path3(main) -> dict:
     }
     emit(out)
     emit(profiled)
-    if counts["simplex_proj"] != expect or counts["dual_oracle"] or counts["dual_primal"]:
+    if (counts["simplex_proj"] != expect or counts["dual_oracle"] or counts["dual_primal"]
+            or counts["dual_oracle_finalize"]):
         fail(f"path 3 launches {counts}, expected {expect} of the simplex kernel")
     if plain_counts["simplex_proj"]:
         fail("the plain projection launched the simplex kernel")
@@ -614,7 +787,20 @@ def phase_two_ranks() -> dict:
     return out
 
 
+def slab_ops(b, m) -> int:
+    """fp32 operations one oracle or primal call needs on bucket b: the
+    candidate (2m + 2), the segment's sort, scan and cut, the projection,
+    and (the oracle) m contributions and two partials per slot."""
+    lg = int(math.log2(b.length))
+    return b.idx.numel() * (2 * m + 2 + lg * (lg + 1) // 2 * 2 + lg + 8 + 2 * m + 4)
+
+
 def phase_times(main) -> dict:
+    """The oracle at the main path's shapes: each bucket alone (its own
+    one-bucket plan: one oracle launch and a finalize) and the whole call
+    (the main path's plan), held against the plain versions, timed by CUDA
+    events against their bounds; the finalize alone the same way; then the
+    profile of the main path's iterations."""
     import torch
 
     from repro_torch.core.maximizer import local_calculate
@@ -627,91 +813,111 @@ def phase_times(main) -> dict:
     J, m = inst.num_destinations, inst.num_families
     gamma = r.config.gammas[-1]
     slot_bytes = kops.oracle_slab_slot_bytes(m, inst.slab_dtype)
-    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    atol = X_ATOL[inst.slab_dtype]
+    call_bytes = 4 * m * J * 2 + 8  # lam read, A x and (c'x, ||x||^2) written
 
-    def bucket_bytes(b):  # each input read once, each output written once
-        return b.idx.numel() * slot_bytes + 4 * m * J * 2  # + lam read, hist write
-
-    def bucket_ops(b):  # fp32 operations this slot's work needs
-        lg = int(math.log2(b.length))
-        per_slot = 2 * m + 2 + lg * (lg + 1) // 2 * 2 + lg + 8 + 2 * m + 4
-        return b.idx.numel() * per_slot
+    def bound(byts, ops):
+        b_ms, o_ms = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        return {"bytes": byts, "fp32_ops": ops, "bytes_bound_ms": b_ms,
+                "ops_bound_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
     rows = []
-    main_err, main_exact = 0.0, 0
     for b in inst.buckets:
-        args, kw = oracle_args(b, lam, gamma, J, True)
-        # x at the main path's shapes against the plain version
-        err, exact = held(kdo.dual_oracle(*args, **kw)[0],
-                          kref.dual_oracle_ref(*args, J, radius=1.0, inequality=True)[0],
-                          X_ATOL[inst.slab_dtype])
-        main_err, main_exact = max(main_err, err), main_exact + exact
-        plan = kdo.plan_launch(b.rows, b.length, m, J, num_sms)
+        plan1 = kdo.plan_slabs("dual_oracle", [b], J)
+        (x,), ax, _, _ = kdo.oracle_call(plan1, lam, gamma)
+        want = kref.dual_oracle_ref(b.idx, b.coeff, b.cost, b.mask, lam, gamma, J)
+        err, exact = held(x, want[0], atol)
         reps = 50 if b.idx.numel() > 100_000 else 200
         rows.append({
             "L": b.length, "rows": b.rows, "slots": b.idx.numel(),
-            "grid": plan.grid, "warps": plan.warps, "lam_in_smem": plan.lam_in_smem,
-            "kernel_ms": event_ms(lambda: kdo.dual_oracle(*args, **kw), reps),
+            "x_max_abs_err": err, "x_bitwise_equal": exact,
+            "ax_bitwise_fixed_point": bool(torch.equal(ax, kref.fixed_point_hist(
+                [b], lam, gamma, J, plan1.shift))),
+            "launch": launch_summary(plan1.launches[0]),
+            "kernel_ms": event_ms(lambda: kdo.oracle_call(plan1, lam, gamma), reps),
             "plain_ms": event_ms(
-                lambda: kref.dual_oracle_ref(*args, J, radius=1.0, inequality=True),
+                lambda: kref.dual_oracle_ref(b.idx, b.coeff, b.cost, b.mask, lam, gamma, J),
                 max(5, reps // 10)),
-            "bound_ms": max(bucket_bytes(b) / HBM_BYTES_PER_S,
-                            bucket_ops(b) / FP32_FLOPS) * 1e3,
+            **bound(b.idx.numel() * slot_bytes + call_bytes, slab_ops(b, m)),
         })
     for row in rows:
         emit({"phase": "times_bucket", **row})
-    largest = max(inst.buckets, key=lambda b: b.idx.numel())
-    args, kw = oracle_args(largest, lam, gamma, J, True)
-    first, second = kdo.dual_oracle(*args, **kw), kdo.dual_oracle(*args, **kw)
-    bitwise = all(torch.equal(a, c) for a, c in zip(first, second))
-    if not bitwise:
-        fail("kernel outputs differ between two calls on the main path's bucket")
+    if not all(row["ax_bitwise_fixed_point"] for row in rows):
+        fail("a main-path bucket's A x differs from the fixed-point plain sum")
 
-    def call_kernels():
-        for b in inst.buckets:
-            a, k = oracle_args(b, lam, gamma, J, True)
-            kdo.dual_oracle(*a, **k)
-
-    def call_fused():
-        for b in inst.buckets:
-            a, k = oracle_args(b, lam, gamma, J, True)
-            kops.fused_dual_oracle(*a, **k)
-
-    def call_plain():
-        for b in inst.buckets:
-            a, _ = oracle_args(b, lam, gamma, J, True)
-            kref.dual_oracle_ref(*a, J, radius=1.0, inequality=True)
-
-    bytes_total = sum(bucket_bytes(b) for b in inst.buckets)
-    ops_total = sum(bucket_ops(b) for b in inst.buckets)
+    # the whole call of the main path's plan, held and timed
+    plan = r.objective.kernel_plan("dual_oracle")
+    scratch = {}
+    xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma, scratch=scratch)
+    want = kref.dual_oracle_call_ref(inst.buckets, lam, gamma, J)
+    fixed = kref.fixed_point_hist(inst.buckets, lam, gamma, J, plan.shift)
+    held_x = [held(x, w, atol) for x, w in zip(xs, want[0])]
+    errs = {name: float((a - w).abs().max()) for a, w, name in
+            zip((ax, lin, sq), want[1:], ("ax", "lin", "sq"))}
+    if not all(bool(((a - w).abs() <= 3e-5 + 1e-5 * w.abs()).all())
+               for a, w in zip((ax, lin, sq), want[1:])):
+        fail(f"whole oracle call against the plain call beyond atol 3e-5 + rtol 1e-5: {errs}")
+    second = kdo.oracle_call(plan, lam, gamma)
+    rerun = (all(torch.equal(a, c) for a, c in zip(xs, second[0]))
+             and all(torch.equal(a, c) for a, c in zip((ax, lin, sq), second[1:])))
+    if not (rerun and torch.equal(ax, fixed)):
+        fail(f"whole call: rerun bitwise {rerun}, A x bitwise the fixed-point sum "
+             f"{bool(torch.equal(ax, fixed))}")
+    slots = sum(b.idx.numel() for b in inst.buckets)
     out = {
         "phase": "times_call",
-        "kernel_ms": event_ms(call_kernels, 30),
-        "fused_dual_oracle_ms": event_ms(call_fused, 30),
-        "plain_ms": event_ms(call_plain, 5),
-        "bytes": bytes_total, "fp32_ops": ops_total,
-        "bytes_bound_ms": bytes_total / HBM_BYTES_PER_S * 1e3,
-        "ops_bound_ms": ops_total / FP32_FLOPS * 1e3,
-        "largest_bucket": {"L": largest.length, "rows": largest.rows},
-        "largest_bucket_bitwise_equal_rerun": bitwise,
-        "main_path_x_max_abs_err": main_err,
-        "main_path_x_bitwise_equal_buckets": main_exact,
+        "launches_per_call": len(plan.launches), "launch": launch_summary(plan.launches[0]),
+        "fixed_point_shift": plan.shift,
+        "kernel_ms": event_ms(lambda: kdo.oracle_call(plan, lam, gamma), 30),
+        "host_enqueue_ms": host_ms(lambda: kdo.oracle_call(plan, lam, gamma)),
+        "fused_dual_oracle_call_ms": event_ms(lambda: kops.fused_dual_oracle_call(
+            inst.buckets, lam, gamma, num_destinations=J, plan=plan), 30),
+        "plain_ms": event_ms(lambda: kref.dual_oracle_call_ref(inst.buckets, lam, gamma, J), 5),
+        **bound(slots * slot_bytes + call_bytes, sum(slab_ops(b, m) for b in inst.buckets)),
+        "main_path_x_max_abs_err": max(e for e, _ in held_x),
+        "main_path_x_bitwise_equal_buckets": sum(x for _, x in held_x),
+        "ax_lin_sq_max_abs_err_vs_plain": errs,
+        "ax_bitwise_fixed_point": True, "bitwise_equal_rerun": rerun,
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused oracle",
     }
-    out["bound_ms"] = max(out["bytes_bound_ms"], out["ops_bound_ms"])
-    out["bound_by"] = "bytes" if out["bytes_bound_ms"] >= out["ops_bound_ms"] else "operations"
     emit(out)
+
+    # the finalize alone, on the int64 row and partials the whole call left
+    acc, scal = scratch["acc"], scratch["scal"]
+    fax, flin_sq = kdo.oracle_finalize(acc, scal, plan.shift, plan.finalize_grid)
+    plain_fin = lambda: (acc.to(torch.float32) * 2.0 ** -plan.shift, scal.sum(0))
+    pax, plin_sq = plain_fin()
+    torch.cuda.synchronize()
+    fin_err = float((flin_sq - plin_sq).abs().max())
+    if not (torch.equal(fax, ax) and torch.equal(fax, pax)
+            and bool(((flin_sq - plin_sq).abs() <= 3e-5 + 1e-5 * plin_sq.abs()).all())):
+        fail(f"finalize against its plain version: A x bitwise {bool(torch.equal(fax, pax))}, "
+             f"(c'x, ||x||^2) error {fin_err}")
+    fin = {
+        "phase": "times_finalize", "scal_rows": plan.scal_rows,
+        "grid": plan.finalize_grid, "ax_bitwise_plain": True, "lin_sq_max_abs_err": fin_err,
+        "kernel_ms": event_ms(lambda: kdo.oracle_finalize(acc, scal, plan.shift,
+                                                          plan.finalize_grid), 200),
+        "plain_ms": event_ms(plain_fin, 50),
+        **bound(acc.numel() * 8 + scal.numel() * 4 + 4 * m * J + 8, acc.numel() + scal.numel()),
+        "library_ms": None,
+        "library_note": "no single PyTorch call turns the int64 row into scaled fp32 "
+                        "and sums the partials",
+    }
+    emit(fin)
     emit(profile_iterations(local_calculate(r.objective), r.result.lam,
                             r.config.gammas[-1], "main"))
-    return out
+    return {"call": out, "finalize": fin}
 
 
 def phase_times_primal_simplex(main) -> dict:
     """The primal-step and simplex kernels at the main path's shapes: per
-    bucket and per call (all buckets), by CUDA events, against their plain
-    versions and their HBM bounds.  The simplex kernel projects the unfused
-    oracle's primal candidates at the main path's final duals."""
+    bucket and per call (all buckets; the primal step in one launch), by
+    CUDA events, against their plain versions and their HBM bounds.  The
+    simplex kernel projects the unfused oracle's primal candidates at the
+    main path's final duals."""
     import torch
 
     from repro_torch.core.objective import gather_at_lam, inv_gamma
@@ -729,7 +935,7 @@ def phase_times_primal_simplex(main) -> dict:
     sort_scan = lambda k: k * (k + 1) // 2 * 2 + k + 8  # per slot: sort, scan, cut
     # the primal kernel: idx, m + 2 slab words and the x write per slot, lam once
     slot2 = kops.oracle_slab_slot_bytes(m, inst.slab_dtype)
-    bytes2 = lambda b: b.idx.numel() * slot2 + 4 * m * J
+    bytes2 = lambda b: b.idx.numel() * slot2
     ops2 = lambda b: b.idx.numel() * (2 * m + 2 + sort_scan(lg(b)))
     # the simplex kernel: v and mask read, out written, per slot
     bytes3 = lambda b: b.idx.numel() * 3 * b.cost.element_size()
@@ -737,28 +943,33 @@ def phase_times_primal_simplex(main) -> dict:
     lam2 = lam.reshape(m, J)
     ginv = inv_gamma(gamma)
     vs = [-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv for b in inst.buckets]
-    args = [oracle_args(b, lam, gamma, J, True) for b in inst.buckets]
+    plain2 = lambda b: kref.dual_primal_ref(b.idx, b.coeff, b.cost, b.mask, lam, gamma, J)
+    plans2 = [kdo.plan_slabs("dual_primal", [b], J) for b in inst.buckets]
+    whole2 = kdo.plan_slabs("dual_primal", inst.buckets, J)
 
     # each kernel at the main path's shapes against its plain version
     atol = X_ATOL[inst.slab_dtype]
     held_by = {"primal": [], "simplex": []}
-    for b, v, (a, kw) in zip(inst.buckets, vs, args):
-        held_by["primal"].append(held(
-            kdp.dual_primal(*a, **kw),
-            kref.dual_primal_ref(*a, J, radius=1.0, inequality=True), atol))
+    xs = kdp.primal_call(whole2, lam, gamma)
+    for b, v, x in zip(inst.buckets, vs, xs):
+        held_by["primal"].append(held(x, plain2(b), atol))
         held_by["simplex"].append(held(ksp.simplex_proj(v, b.mask),
                                        kref.simplex_ref(v, b.mask), atol))
+    oracle_xs = kdo.oracle_call(r.objective.kernel_plan("dual_oracle"), lam, gamma)[0]
+    x_equal = all(torch.equal(a, c) for a, c in zip(xs, oracle_xs))
+    if not x_equal:
+        fail("primal kernel's x differs from the oracle's on the main path's buckets")
 
     rows = []
-    for b, v, (a, kw) in zip(inst.buckets, vs, args):
+    for b, v, p1 in zip(inst.buckets, vs, plans2):
         reps = 50 if b.idx.numel() > 100_000 else 200
         rows.append({
             "L": b.length, "rows": b.rows, "slots": b.idx.numel(),
-            "primal_kernel_ms": event_ms(lambda: kdp.dual_primal(*a, **kw), reps),
-            "primal_plain_ms": event_ms(
-                lambda: kref.dual_primal_ref(*a, J, radius=1.0, inequality=True),
-                max(5, reps // 10)),
-            "primal_bound_ms": max(bytes2(b) / HBM_BYTES_PER_S, ops2(b) / FP32_FLOPS) * 1e3,
+            "primal_launch": launch_summary(p1.launches[0]),
+            "primal_kernel_ms": event_ms(lambda: kdp.primal_call(p1, lam, gamma), reps),
+            "primal_plain_ms": event_ms(lambda: plain2(b), max(5, reps // 10)),
+            "primal_bound_ms": max((bytes2(b) + 4 * m * J) / HBM_BYTES_PER_S,
+                                   ops2(b) / FP32_FLOPS) * 1e3,
             "simplex_kernel_ms": event_ms(lambda: ksp.simplex_proj(v, b.mask), reps),
             "simplex_plain_ms": event_ms(lambda: kref.simplex_ref(v, b.mask),
                                          max(5, reps // 10)),
@@ -766,20 +977,17 @@ def phase_times_primal_simplex(main) -> dict:
         })
     for row in rows:
         emit({"phase": "times_bucket_primal_simplex", **row})
-    largest = max(range(len(inst.buckets)), key=lambda i: inst.buckets[i].idx.numel())
-    a, kw = args[largest]
-    x_equal = torch.equal(kdp.dual_primal(*a, **kw), kdo.dual_oracle(*a, **kw)[0])
-    if not x_equal:
-        fail("primal kernel's x differs from the oracle's on the main path's largest bucket")
 
     def over_buckets(fn):  # one call: every bucket once
         return lambda: [fn(i) for i in range(len(inst.buckets))]
 
     out = {"phase": "times_call_primal_simplex", "library_ms": None,
            "library_note": "no single PyTorch call computes either function",
-           "largest_bucket_x_bitwise_equal_oracle": x_equal}
-    for name, bytes_fn, ops_fn in (("primal", bytes2, ops2), ("simplex", bytes3, ops3)):
-        byts = sum(bytes_fn(b) for b in inst.buckets)
+           "primal_launch": launch_summary(whole2.launches[0]),
+           "x_bitwise_equal_oracle": x_equal}
+    for name, bytes_fn, ops_fn, extra in (("primal", bytes2, ops2, 4 * m * J),
+                                          ("simplex", bytes3, ops3, 0)):
+        byts = sum(bytes_fn(b) for b in inst.buckets) + extra
         ops = sum(ops_fn(b) for b in inst.buckets)
         out[name] = {"bytes": byts, "fp32_ops": ops,
                      "bytes_bound_ms": byts / HBM_BYTES_PER_S * 1e3,
@@ -789,10 +997,9 @@ def phase_times_primal_simplex(main) -> dict:
                                  >= out[name]["ops_bound_ms"] else "operations")
         out[name]["main_path_max_abs_err"] = max(e for e, _ in held_by[name])
         out[name]["main_path_bitwise_equal_buckets"] = sum(x for _, x in held_by[name])
-    out["primal"]["kernel_ms"] = event_ms(
-        over_buckets(lambda i: kdp.dual_primal(*args[i][0], **args[i][1])), 30)
-    out["primal"]["plain_ms"] = event_ms(over_buckets(
-        lambda i: kref.dual_primal_ref(*args[i][0], J, radius=1.0, inequality=True)), 5)
+    out["primal"]["kernel_ms"] = event_ms(lambda: kdp.primal_call(whole2, lam, gamma), 30)
+    out["primal"]["host_enqueue_ms"] = host_ms(lambda: kdp.primal_call(whole2, lam, gamma))
+    out["primal"]["plain_ms"] = event_ms(over_buckets(lambda i: plain2(inst.buckets[i])), 5)
     out["simplex"]["kernel_ms"] = event_ms(
         over_buckets(lambda i: ksp.simplex_proj(vs[i], inst.buckets[i].mask)), 30)
     out["simplex"]["plain_ms"] = event_ms(
@@ -831,7 +1038,7 @@ def profile_iterations(calculate, lam, gamma: float, tag: str, iters: int = 20) 
     busy_ms = sum(t for _, t in rows)
     rows.sort(key=lambda kv: -kv[1])
     kernels = [[m.group(0), t / iters] for k, t in rows
-               if (m := re.search(r"(dual_oracle|dual_primal|simplex)_\w+<[^>]*>", k))]
+               if (m := re.search(r"(oracle|primal|simplex)_(narrow|wide|finalize)(<[^>]*>)?", k))]
     return {
         "phase": "profile", "path": tag, "iterations": iters,
         "wall_ms_per_iter": wall_ms / iters,
@@ -880,6 +1087,8 @@ def main() -> int:
           "ptxas_lines": {k: len(v) for k, v in ptxas.items()},
           "ptxas_sample": {k: v[:4] for k, v in ptxas.items()}})
 
+    timed(phase_kernel_info, ptxas_summary(build.build_logs))
+
     # 3. sweeps
     sweep = timed(phase_sweep, device)
     sweep2 = timed(phase_sweep2, device)
@@ -899,9 +1108,9 @@ def main() -> int:
         return max(v if isinstance(v, float) else max(v.values())
                    for v in sw["worst_abs_err"].values())
 
-    def entry(name, replaces, launches, err, t):
+    def entry(name, replaces, launches, err, t, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -910,7 +1119,10 @@ def main() -> int:
     emit({"kernels": [
         entry("dual_oracle", "src/repro/kernels/dual_oracle.py:87",
               main_path["summary"]["kernel_launches"],
-              max(worst(sweep), times["main_path_x_max_abs_err"]), times),
+              max(worst(sweep), times["call"]["main_path_x_max_abs_err"]), times["call"]),
+        entry("dual_oracle_finalize", "src/repro/kernels/ops.py:317",
+              main_path["summary"]["launch_counts"]["dual_oracle_finalize"],
+              times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle"),
         entry("dual_primal", "src/repro/kernels/dual_primal.py:100",
               path2["launch_counts"]["dual_primal"],
               max(worst(sweep2), times23["primal"]["main_path_max_abs_err"]),

@@ -10,17 +10,20 @@ for the ridge-regularized matching LP:
 over the bucketed-ELL layout: A^T lam is a per-bucket gather, A x a
 per-bucket sum into J bins per family, in a fixed order (`binned_segment_sum`).  `fused_oracle=True` routes
 the whole of `calculate` through the one-pass fused dual oracle
-(`kernels.ops.fused_dual_oracle`): per bucket, one kernel launch emits the
-primal slab, the A x histogram and (c'x, ||x||^2) from a single slab read.
+(`kernels.ops.fused_dual_oracle_call`): on the card one kernel launch for
+every bucket of width <= 32 emits the primal slabs, A x and (c'x, ||x||^2)
+from a single slab read, and a finalize launch sums them.
 `fused_kernel=True` routes only the primal step through the fused primal
-kernel (`kernels.ops.fused_dual_primal`); A x and the objective terms stay
-on the plain path.
+kernel (`kernels.ops.fused_dual_primal_call`, one launch); A x and the
+objective terms stay on the plain path.  Both kernels' plans are built once
+per objective (`kernel_plan`).
 
 The formulation layer of the reference (a `FormulationSpec` on the instance,
 non-unit term scales) is not part of this port yet; `repro_torch.convert`
 refuses an instance that carries one.  `gamma` is a Python float throughout,
 so no call here waits for the device, apart from the first A x of an
-objective, which sorts each bucket's bins once (`segment_plans`).
+objective, which sorts each bucket's bins once (`segment_plans`), and the
+first fused-oracle call on the card, which fixes its fixed-point scale.
 """
 from __future__ import annotations
 
@@ -150,14 +153,18 @@ class MatchingObjective:
         default_factory=UnitSimplexProjection
     )
     include_rhs: bool = True
-    # fused primal step: one kernel launch per bucket computes x
+    # fused primal step: one kernel launch per call computes x
     fused_kernel: bool = False
-    # one-pass fused dual oracle: one kernel launch per bucket per call
+    # one-pass fused dual oracle: one kernel launch (and a finalize) per call
     # (subsumes fused_kernel)
     fused_oracle: bool = False
     # per-bucket summation order of A x, built at first use
     _plans: tuple[SegmentPlan, ...] | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False
+    )
+    # the fused kernels' plans on the card, built at first use
+    _kernel_plans: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
     )
 
     @property
@@ -181,16 +188,10 @@ class MatchingObjective:
             from repro_torch.kernels import ops as kops
 
             proj = self._simplex("primal kernel")
-            return tuple(
-                kops.fused_dual_primal(
-                    b.idx, b.coeff, b.cost, b.mask, lam, gamma,
-                    num_destinations=inst.num_destinations,
-                    radius=proj.radius,
-                    inequality=proj.inequality,
-                    coeff_scale=b.coeff_scale,
-                    cost_scale=b.cost_scale,
-                )
-                for b in inst.buckets
+            return kops.fused_dual_primal_call(
+                inst.buckets, lam, gamma, num_destinations=inst.num_destinations,
+                radius=proj.radius, inequality=proj.inequality,
+                plan=self.kernel_plan("dual_primal"),
             )
         lam2 = lam.reshape(inst.num_families, inst.num_destinations)
         ginv = inv_gamma(gamma)
@@ -198,6 +199,21 @@ class MatchingObjective:
             self.projection(-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv, b.mask)
             for b in self._buckets
         )
+
+    def kernel_plan(self, kernel: str):
+        """The plan of the fused kernel `kernel` ("dual_oracle" or
+        "dual_primal") over this objective's slabs, built once on the card
+        (`kernels.ops.plan_slab_kernel`); None on the CPU."""
+        if kernel not in self._kernel_plans:
+            from repro_torch.kernels import ops as kops
+
+            proj = self._simplex("dual oracle" if kernel == "dual_oracle" else "primal kernel")
+            inst = self.instance
+            self._kernel_plans[kernel] = kops.plan_slab_kernel(
+                kernel, inst.buckets, inst.num_destinations, radius=proj.radius,
+                inequality=proj.inequality,
+            )
+        return self._kernel_plans[kernel]
 
     def segment_plans(self) -> tuple[SegmentPlan, ...]:
         """Each bucket's `SegmentPlan`, sorted once per objective."""
@@ -248,34 +264,18 @@ class MatchingObjective:
         )
 
     def _calculate_fused(self, lam: torch.Tensor, gamma: float) -> DualEval:
-        """One-pass oracle: per bucket ONE fused launch emits the primal slab
-        plus this bucket's A x histogram and objective scalars."""
+        """One-pass oracle: ONE fused call emits the primal slabs, A x and
+        the objective scalars."""
         from repro_torch.kernels import ops as kops
 
         proj = self._simplex("dual oracle")
         inst = self.instance
-        ax2 = torch.zeros(
-            (inst.num_families, inst.num_destinations), dtype=torch.float32,
-            device=inst.device,
+        x_slabs, ax, lin, sq = kops.fused_dual_oracle_call(
+            inst.buckets, lam, gamma, num_destinations=inst.num_destinations,
+            radius=proj.radius, inequality=proj.inequality,
+            plan=self.kernel_plan("dual_oracle"),
         )
-        lin = sq = 0.0
-        x_slabs = []
-        for b in inst.buckets:
-            x, hist, b_lin, b_sq = kops.fused_dual_oracle(
-                b.idx, b.coeff, b.cost, b.mask, lam, gamma,
-                num_destinations=inst.num_destinations,
-                radius=proj.radius,
-                inequality=proj.inequality,
-                coeff_scale=b.coeff_scale,
-                cost_scale=b.cost_scale,
-            )
-            x_slabs.append(x)
-            ax2 = ax2 + hist
-            lin = lin + b_lin
-            sq = sq + b_sq
-        return self._finish_eval(
-            lam, ax2.reshape(-1), lin, 0.5 * gamma * sq, tuple(x_slabs)
-        )
+        return self._finish_eval(lam, ax, lin, 0.5 * gamma * sq, x_slabs)
 
     # -- diagnostics --------------------------------------------------------
 

@@ -1,4 +1,5 @@
-// Device functions shared by the port's hand-written Hopper kernels:
+// Device functions and launch scaffolding shared by the port's hand-written
+// Hopper kernels:
 //
 //   dual_oracle.cu   replaces repro/kernels/dual_oracle.py::dual_oracle_kernel_body
 //   dual_primal.cu   replaces repro/kernels/dual_primal.py::dual_primal_kernel_body
@@ -13,18 +14,35 @@
 //     PyTorch's CUDA cumsum (Sklansky within a warp for rows of <= 32, ATen's
 //     chunking for wider rows), so the cutoff sums round as the plain
 //     version's do.  Padded slots enter as kNeg and come out exactly 0.
+//
+// The oracle and the primal step walk the slabs with the same code
+// (walk_narrow, walk_wide): one launch covers every bucket of width <= 32,
+// and a `Sink` receives each slot with its x (the oracle bins A x there, the
+// primal step does nothing), so the two kernels' x are the same by
+// construction.  The family count is a template parameter M (1, 2, 4 or 8)
+// with the runtime m <= M, so a slot holds M coefficients, not eight.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kNeg = -1.0e30f;  // finite stand-in for -inf, as the reference
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxFamilies = 8;   // MAX_FAMILIES of the Python wrappers
 constexpr int kMaxSmem = 232448;  // 227 KB opt-in shared memory per block
+constexpr int kMaxSlabs = 16;     // buckets one launch walks (MAX_SLABS in Python)
+constexpr int kUnroll = 4;        // 32-slot groups a warp loads together (UNROLL)
+constexpr int kWideWarps = 8;     // most warps of a wide-row block (WIDE_WARPS)
+constexpr int kSlabWords = 10;    // int64 words per bucket from Python (SLAB_WORDS)
+constexpr int kLaunchWords = 9 + kMaxSlabs;  // int64 words per launch (LAUNCH_WORDS)
+
+// Threads of a narrow-row block: the most that fit the registers a slot of
+// M families needs (1024 threads leave 64 registers a thread).
+template <int M> constexpr int narrow_threads() { return M <= 2 ? 1024 : 512; }
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -37,41 +55,76 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <typename T> struct OutType { using type = T; };
 template <> struct OutType<int8_t> { using type = float; };
 
+// One bucket slab of a launch.
+struct Slab {
+  const int32_t* idx;        // [n, L]
+  const void* coeff;         // [m, n, L] storage dtype
+  const void* cost;          // [n, L] storage dtype
+  const void* mask;          // [n, L] storage dtype
+  const float* coeff_scale;  // [m] (int8 only, else null)
+  const float* cost_scale;   // [1] (int8 only, else null)
+  void* x;                   // [n, L] storage dtype (fp32 for int8)
+  long long n;               // rows
+  long long task0;           // narrow rows: first warp task of this slab
+  int logl;                  // log2 of the width L
+  int scan_chunk;            // wide rows: chunk of the cumsum order, <= L
+};
+
+// Everything one launch computes, passed by value (__grid_constant__).
+struct Launch {
+  Slab slab[kMaxSlabs];
+  int nslab;
+  long long tasks;  // narrow: warp tasks over all slabs; wide: rows of slab[0]
+  const float* lam;  // [m, J]
+  int m, J;
+  float ginv, radius;  // 1/gamma rounded to fp32
+  int inequality, lam_in_smem;
+  // the oracle only
+  unsigned long long* acc;  // int64 A x accumulator [m*J], zeroed by the caller
+  float* scal;              // per-block (c'x, ||x||^2) rows [rows][2]
+  int hist_mode;            // kHistShared / kHistGlobal
+  int scal_row;             // this launch's first scal row
+  float qscale;             // 2^shift of the fixed-point A x
+};
+
+// Where the oracle's int64 A x histogram lives.
+constexpr int kHistShared = 0;  // shared memory, added into `acc` at block end
+constexpr int kHistGlobal = 1;  // past shared memory: `acc` itself
+
 // One slab slot, widened to fp32.
+template <int M>
 struct Slot {
   int idx;
-  float coeff[kMaxFamilies];
+  float coeff[M];
   float cost, mask;
 };
 
-// `P` holds the slab: idx, coeff [m, n, L], cost, mask and m.
-template <typename T, typename P>
-__device__ __forceinline__ void load_slot(const P& p, const float* scale,
-                                          float cost_scale, long long s,
-                                          long long slots, bool valid, Slot& out) {
-  const T* coeff = static_cast<const T*>(p.coeff);
-  out.idx = valid ? p.idx[s] : 0;
-  out.cost = valid ? widen(static_cast<const T*>(p.cost)[s]) * cost_scale : 0.f;
-  out.mask = valid ? widen(static_cast<const T*>(p.mask)[s]) : 0.f;
+// The int8 dequantization scales (1 for float slabs).
+template <int M>
+__device__ __forceinline__ void load_scales(const Slab& b, int m, float (&scale)[M],
+                                            float& cost_scale) {
 #pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) {
-    out.coeff[k] = (k < p.m && valid) ? widen(coeff[k * slots + s]) * scale[k] : 0.f;
+  for (int k = 0; k < M; ++k)
+    scale[k] = (b.coeff_scale != nullptr && k < m) ? b.coeff_scale[k] : 1.f;
+  cost_scale = b.cost_scale != nullptr ? b.cost_scale[0] : 1.f;
+}
+
+template <typename T, int M>
+__device__ __forceinline__ void load_slot(const Slab& b, int m, const float (&scale)[M],
+                                          float cost_scale, long long s, long long slots,
+                                          bool valid, Slot<M>& out) {
+  const T* coeff = static_cast<const T*>(b.coeff);
+  out.idx = valid ? b.idx[s] : 0;
+  out.cost = valid ? widen(static_cast<const T*>(b.cost)[s]) * cost_scale : 0.f;
+  out.mask = valid ? widen(static_cast<const T*>(b.mask)[s]) : 0.f;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    out.coeff[k] = (k < m && valid) ? widen(coeff[k * slots + s]) * scale[k] : 0.f;
   }
 }
 
-// The int8 dequantization scales (1 for float slabs).
-template <typename P>
-__device__ __forceinline__ void load_scales(const P& p, float (&scale)[kMaxFamilies],
-                                            float& cost_scale) {
-#pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k)
-    scale[k] = (p.coeff_scale != nullptr && k < p.m) ? p.coeff_scale[k] : 1.f;
-  cost_scale = p.cost_scale != nullptr ? p.cost_scale[0] : 1.f;
-}
-
 // Copies lam [mJ] into shared memory with the whole block.  16-byte loads,
-// several in flight per thread: staging lam is a fixed cost of every block
-// and dominates the small buckets' launches.  The caller synchronises.
+// several in flight per thread.  The caller synchronises.
 __device__ __forceinline__ void stage_lam(const float* lam, int mJ, float* dst) {
   if ((mJ & 3) == 0 && (reinterpret_cast<uintptr_t>(lam) & 15) == 0) {
     const float4* src = reinterpret_cast<const float4*>(lam);
@@ -89,11 +142,12 @@ __device__ __forceinline__ void stage_lam(const float* lam, int mJ, float* dst) 
 // family products summed in order without fused multiply-adds, then one
 // multiply by the fp32 reciprocal of gamma.  `lam` is generic: shared memory
 // or global.
-__device__ __forceinline__ float primal_candidate(const Slot& s, const float* lam,
+template <int M>
+__device__ __forceinline__ float primal_candidate(const Slot<M>& s, const float* lam,
                                                   int m, int J, float ginv) {
   float atl = __fmul_rn(s.coeff[0], lam[s.idx]);
 #pragma unroll
-  for (int k = 1; k < kMaxFamilies; ++k) {
+  for (int k = 1; k < M; ++k) {
     if (k < m) atl = __fadd_rn(atl, __fmul_rn(s.coeff[k], lam[k * J + s.idx]));
   }
   return __fmul_rn(-__fadd_rn(atl, s.cost), ginv);
@@ -221,16 +275,235 @@ __device__ __forceinline__ float simplex_wide_apply(float v, float maskf, const 
   return cut.feasible ? fmaxf(v, 0.f) * maskf : fmaxf(vm - cut.theta, 0.f) * maskf;
 }
 
-// Sets the dynamic shared memory a launch needs, launches, and returns the
-// launch's error (0 on success).
-template <typename K, typename P>
-cudaError_t launch_kernel(K kernel, const P& p, int grid, int warps, size_t smem,
-                          cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// One warp task of a narrow slab (L = 2^LOGL <= 32): kUnroll groups of 32
+// consecutive slots starting at group g0, i.e. whole rows, one per segment of
+// L lanes.  The loads of all groups are issued before any is computed.
+template <typename T, int M, int LOGL, typename Sink>
+__device__ __forceinline__ void narrow_task(const Launch& p, const Slab& b, long long g0,
+                                            const float* lam, Sink& sink) {
+  using TO = typename OutType<T>::type;
+  constexpr int L = 1 << LOGL;
+  const int lane = threadIdx.x & 31;
+  const int pos = lane & (L - 1);
+  const long long slots = b.n << LOGL;
+  float scale[M], cost_scale;
+  load_scales<M>(b, p.m, scale, cost_scale);
+  Slot<M> slot[kUnroll];
+  bool valid[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long s = (g0 + u) * 32 + lane;
+    valid[u] = s < slots;
+    load_slot<T, M>(b, p.m, scale, cost_scale, s, slots, valid[u], slot[u]);
+  }
+  float x[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const float v = primal_candidate<M>(slot[u], lam, p.m, p.J, p.ginv);
+    x[u] = simplex_segment<LOGL>(v, slot[u].mask, pos, p.radius, p.inequality != 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (valid[u]) {
+      store(static_cast<TO*>(b.x) + (g0 + u) * 32 + lane, x[u]);
+      sink(slot[u], x[u]);
+    }
+  }
+}
+
+// The narrow rows of a launch: every warp takes warp tasks (kUnroll groups
+// of 32 slots) of all its slabs in turn, the slabs one after another in
+// task space (Slab::task0, computed by the Python plan).
+template <typename T, int M, typename Sink>
+__device__ __forceinline__ void walk_narrow(const Launch& p, const float* lam, Sink& sink) {
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long t = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       t < p.tasks; t += warps) {
+    int i = 0;
+    while (i + 1 < p.nslab && t >= p.slab[i + 1].task0) ++i;
+    const Slab& b = p.slab[i];
+    const long long g0 = (t - b.task0) * kUnroll;
+    switch (b.logl) {
+      case 0: narrow_task<T, M, 0>(p, b, g0, lam, sink); break;
+      case 1: narrow_task<T, M, 1>(p, b, g0, lam, sink); break;
+      case 2: narrow_task<T, M, 2>(p, b, g0, lam, sink); break;
+      case 3: narrow_task<T, M, 3>(p, b, g0, lam, sink); break;
+      case 4: narrow_task<T, M, 4>(p, b, g0, lam, sink); break;
+      default: narrow_task<T, M, 5>(p, b, g0, lam, sink); break;
+    }
+  }
+}
+
+// The rows of one wide slab (64 <= L <= 8192, slab[0] of the launch): one
+// warp per row, its candidates sorted and scanned in the warp's two
+// shared-memory rows A and C (simplex_wide_cut), then computed again for x.
+template <typename T, int M, typename Sink>
+__device__ __forceinline__ void walk_wide(const Launch& p, const float* lam, float* rows,
+                                          Sink& sink) {
+  using TO = typename OutType<T>::type;
+  const Slab& b = p.slab[0];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int L = 1 << b.logl;
+  float* A = rows + 2 * warp * L;  // the sorted row
+  float* C = A + L;                // its inclusive scan
+  float scale[M], cost_scale;
+  load_scales<M>(b, p.m, scale, cost_scale);
+  const long long slots = b.n * L;
+  const long long stride = static_cast<long long>(gridDim.x) * warps;
+  for (long long row = static_cast<long long>(blockIdx.x) * warps + warp; row < b.n;
+       row += stride) {
+    const long long base = row * L;
+    auto candidate = [&](int q, Slot<M>& s) {
+      load_slot<T, M>(b, p.m, scale, cost_scale, base + q, slots, true, s);
+      return primal_candidate<M>(s, lam, p.m, p.J, p.ginv);
+    };
+    const RowCut cut = simplex_wide_cut(
+        [&](int q, float& v, float& maskf) {
+          Slot<M> s;
+          v = candidate(q, s);
+          maskf = s.mask;
+        },
+        A, C, L, b.scan_chunk, p.radius, p.inequality != 0);
+    for (int q = lane; q < L; q += 32) {
+      Slot<M> s;
+      const float x = simplex_wide_apply(candidate(q, s), s.mask, cut);
+      store(static_cast<TO*>(b.x) + base + q, x);
+      sink(s, x);
+    }
+  }
+}
+
+// The sink of the primal step: x is all it computes.
+struct NoSink {
+  template <int M>
+  __device__ __forceinline__ void operator()(const Slot<M>&, float) {}
+};
+
+// -- host side --------------------------------------------------------------
+
+// The template family count M (1, 2, 4 or 8) takes the runtime m.
+inline bool valid_families(int M, int m) {
+  return (M == 1 || M == 2 || M == 4 || M == 8) && m >= 1 && m <= M;
+}
+
+// How one launch of the Python plan runs.
+struct LaunchShape {
+  bool wide;
+  int grid, threads;
+  size_t smem;
+};
+
+// Decodes launch word block `lw` of the Python plan (kLaunchWords int64:
+// wide, grid, threads, smem, lam_in_smem, hist_mode, scal_row, tasks,
+// nslab, then the slab ids) into `p` and `shape`, with its slabs from
+// `words` (kSlabWords int64 per slab: idx, coeff, cost, mask, coeff_scale,
+// cost_scale, n, L, task0, scan_chunk) and one x pointer each.  Returns
+// false on what the kernels do not take.
+inline bool decode_launch(const long long* lw, const long long* words, int nslabs,
+                          const long long* x, Launch& p, LaunchShape& shape) {
+  shape.wide = lw[0] != 0;
+  shape.grid = static_cast<int>(lw[1]);
+  shape.threads = static_cast<int>(lw[2]);
+  shape.smem = static_cast<size_t>(lw[3]);
+  p.lam_in_smem = static_cast<int>(lw[4]);
+  p.hist_mode = static_cast<int>(lw[5]);
+  p.scal_row = static_cast<int>(lw[6]);
+  p.tasks = lw[7];
+  p.nslab = static_cast<int>(lw[8]);
+  if (shape.grid < 1 || shape.threads < 32 || shape.threads > 1024 || shape.threads % 32 ||
+      lw[3] < 0 || lw[3] > kMaxSmem || p.hist_mode < kHistShared || p.hist_mode > kHistGlobal ||
+      p.nslab < 1 || p.nslab > kMaxSlabs || (shape.wide && p.nslab != 1) || p.tasks < 0) {
+    return false;
+  }
+  for (int i = 0; i < p.nslab; ++i) {
+    const long long id = lw[9 + i];
+    if (id < 0 || id >= nslabs) return false;
+    const long long* w = words + id * kSlabWords;
+    const long long L = w[7];
+    if (L < 1 || (L & (L - 1)) || L > 8192 || (L > 32) != shape.wide || w[6] < 0) return false;
+    Slab& s = p.slab[i];
+    s.idx = reinterpret_cast<const int32_t*>(w[0]);
+    s.coeff = reinterpret_cast<const void*>(w[1]);
+    s.cost = reinterpret_cast<const void*>(w[2]);
+    s.mask = reinterpret_cast<const void*>(w[3]);
+    s.coeff_scale = reinterpret_cast<const float*>(w[4]);
+    s.cost_scale = reinterpret_cast<const float*>(w[5]);
+    s.x = reinterpret_cast<void*>(x[id]);
+    s.n = w[6];
+    s.logl = 0;
+    while ((1LL << s.logl) < L) ++s.logl;
+    s.task0 = w[8];
+    s.scan_chunk = static_cast<int>(w[9]);
+    if (shape.wide && (s.scan_chunk < 32 || s.scan_chunk > L ||
+                       (s.scan_chunk & (s.scan_chunk - 1)))) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Lets kernel K use all of a block's opt-in shared memory: once per kernel
+// instantiation and device, not once per launch.
+template <auto K>
+cudaError_t allow_max_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, warps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// Launches kernel K and returns the launch's error (0 on success).
+template <auto K, typename P>
+cudaError_t launch_kernel(const P& p, int grid, int threads, size_t smem,
+                          cudaStream_t stream) {
+  cudaError_t err = allow_max_smem<K>();
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<P*>(&p)};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(K), dim3(grid), dim3(threads), args,
+                          smem, stream);
+}
+
+// What the compiler made of kernel K and how many of its blocks of
+// `threads` threads and `smem` bytes fit on one SM:
+// out = {max threads per block, registers per thread, local (spill) bytes
+// per thread, resident blocks per SM}.
+template <auto K>
+cudaError_t kernel_info(int threads, size_t smem, int* out) {
+  cudaError_t err = allow_max_smem<K>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, K);
+  if (err != cudaSuccess) return err;
+  out[0] = a.maxThreadsPerBlock;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], K, threads, smem);
+}
+
+// Calls f.template run<T, M>() for a slab dtype code (0 fp32, 1 bf16, 2 int8)
+// and a template family count M in {1, 2, 4, 8}.
+template <typename F>
+cudaError_t visit(int dtype, int M, F& f) {
+  switch (dtype * 16 + M) {
+    case 0 * 16 + 1: return f.template run<float, 1>();
+    case 0 * 16 + 2: return f.template run<float, 2>();
+    case 0 * 16 + 4: return f.template run<float, 4>();
+    case 0 * 16 + 8: return f.template run<float, 8>();
+    case 1 * 16 + 1: return f.template run<__nv_bfloat16, 1>();
+    case 1 * 16 + 2: return f.template run<__nv_bfloat16, 2>();
+    case 1 * 16 + 4: return f.template run<__nv_bfloat16, 4>();
+    case 1 * 16 + 8: return f.template run<__nv_bfloat16, 8>();
+    case 2 * 16 + 1: return f.template run<int8_t, 1>();
+    case 2 * 16 + 2: return f.template run<int8_t, 2>();
+    case 2 * 16 + 4: return f.template run<int8_t, 4>();
+    case 2 * 16 + 8: return f.template run<int8_t, 8>();
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

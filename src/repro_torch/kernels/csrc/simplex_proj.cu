@@ -26,7 +26,6 @@
 namespace {
 
 constexpr int kMaxWarps = 8;  // simplex_proj.py MAX_WARPS
-constexpr int kUnroll = 4;    // simplex_proj.py UNROLL
 
 struct Params {
   const void* v;     // [n, L]
@@ -104,13 +103,13 @@ simplex_wide(Params p) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int grid, int warps, size_t smem, cudaStream_t st) {
   switch (p.L) {
-    case 1: return launch_kernel(simplex_narrow<T, 0>, p, grid, warps, smem, st);
-    case 2: return launch_kernel(simplex_narrow<T, 1>, p, grid, warps, smem, st);
-    case 4: return launch_kernel(simplex_narrow<T, 2>, p, grid, warps, smem, st);
-    case 8: return launch_kernel(simplex_narrow<T, 3>, p, grid, warps, smem, st);
-    case 16: return launch_kernel(simplex_narrow<T, 4>, p, grid, warps, smem, st);
-    case 32: return launch_kernel(simplex_narrow<T, 5>, p, grid, warps, smem, st);
-    default: return launch_kernel(simplex_wide<T>, p, grid, warps, smem, st);
+    case 1: return launch_kernel<simplex_narrow<T, 0>>(p, grid, warps * 32, smem, st);
+    case 2: return launch_kernel<simplex_narrow<T, 1>>(p, grid, warps * 32, smem, st);
+    case 4: return launch_kernel<simplex_narrow<T, 2>>(p, grid, warps * 32, smem, st);
+    case 8: return launch_kernel<simplex_narrow<T, 3>>(p, grid, warps * 32, smem, st);
+    case 16: return launch_kernel<simplex_narrow<T, 4>>(p, grid, warps * 32, smem, st);
+    case 32: return launch_kernel<simplex_narrow<T, 5>>(p, grid, warps * 32, smem, st);
+    default: return launch_kernel<simplex_wide<T>>(p, grid, warps * 32, smem, st);
   }
 }
 

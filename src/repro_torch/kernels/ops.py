@@ -1,8 +1,14 @@
 """Dispatch of the three kernels (port of `repro.kernels.ops`).
 
-  fused_dual_oracle      one-pass oracle      kernel dual_oracle.dual_oracle
-  fused_dual_primal      the primal step      kernel dual_primal.dual_primal
-  fused_project_simplex  simplex projection   kernel simplex_proj.simplex_proj
+  fused_dual_oracle_call  one-pass oracle, every bucket   dual_oracle.oracle_call
+  fused_dual_primal_call  the primal step, every bucket   dual_primal.primal_call
+  fused_dual_oracle       one-pass oracle, one bucket     dual_oracle.dual_oracle
+  fused_dual_primal       the primal step, one bucket     dual_primal.dual_primal
+  fused_project_simplex   simplex projection              simplex_proj.simplex_proj
+
+The whole-call entry points are what `MatchingObjective` calls: one kernel
+plan per objective (`plan_slab_kernel`, built once on the card), one oracle
+launch and one finalize per call on the main path.
 
 Each routes by where the tensors live:
   * CPU tensors take the plain version (`ref.dual_oracle_ref`,
@@ -14,7 +20,7 @@ Each routes by where the tensors live:
 One shape rule comes first, as in the reference (the paper's multi-launch
 policy, §4.3): a width that is not a power of two or exceeds
 MAX_FUSED_LENGTH = 8192 goes to the plain version on any device, and
-`width_routed` counts those calls.  `bucketize` only makes power-of-two
+`width_routed` counts those buckets, once per call.  `bucketize` only makes power-of-two
 widths, so the count stays 0 unless some source has more than 8192 edges.
 
 The kernels need no row padding: they mask the ragged tail themselves.
@@ -34,10 +40,13 @@ from repro_torch.kernels.dual_oracle import MAX_FUSED_LENGTH
 __all__ = [
     "MAX_FUSED_LENGTH",
     "fused_dual_oracle",
+    "fused_dual_oracle_call",
     "fused_dual_primal",
+    "fused_dual_primal_call",
     "fused_project_simplex",
     "oracle_hist_partial_bytes",
     "oracle_slab_slot_bytes",
+    "plan_slab_kernel",
     "width_routed",
 ]
 
@@ -50,20 +59,27 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+def _kernel_width(L: int) -> bool:
+    return _is_pow2(L) and L <= MAX_FUSED_LENGTH
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """CUDA tensors take the kernels, CPU tensors the plain versions; any
+    other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel path for device {t.device}")
+    return t.device.type == "cuda"
+
+
 def _use_kernel(t: torch.Tensor) -> bool:
     """Whether a call on slab `t` [..., L] goes to its kernel (CUDA) or to
     its plain version (CPU, or a width the kernels do not take, counted in
     `width_routed`); any other device raises."""
     global width_routed
-    L = t.shape[-1]
-    if not _is_pow2(L) or L > MAX_FUSED_LENGTH:
+    if not _kernel_width(t.shape[-1]):
         width_routed += 1
         return False
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel path for device {t.device}")
-    return True
+    return _on_card(t)
 
 
 def oracle_slab_slot_bytes(num_families: int, slab_dtype="float32") -> int:
@@ -75,15 +91,103 @@ def oracle_slab_slot_bytes(num_families: int, slab_dtype="float32") -> int:
     return 4 + (num_families + 2) * size + (4 if name == "int8" else size)
 
 
-def oracle_hist_partial_bytes(
-    n_rows: int, length: int, num_families: int, num_destinations: int,
-    num_sms: int,
-) -> int:
-    """Per-call partial-histogram HBM traffic of one bucket on the port's
-    persistent grid: one [m, J] fp32 write per block plus its read by the
-    tree-sum."""
-    plan = kdo.plan_launch(n_rows, length, num_families, num_destinations, num_sms)
-    return 2 * 4 * plan.grid * num_families * num_destinations
+def oracle_hist_partial_bytes(grid: int, num_families: int, num_destinations: int,
+                              hist_mode: int = kdo.HIST_SHARED) -> int:
+    """Per-call HBM traffic of the oracle's int64 A x row for a launch of
+    `grid` blocks: the row zeroed and read by the finalize, and with the
+    histogram in shared memory at most one atomic add per bin and block
+    (HIST_SHARED); with the histogram in global memory (HIST_GLOBAL) the
+    adds are one per contribution and not counted here."""
+    row = 8 * num_families * num_destinations
+    return 2 * row + (row * grid if hist_mode == kdo.HIST_SHARED else 0)
+
+
+def plan_slab_kernel(kernel: str, buckets, num_destinations: int, *, radius: float = 1.0,
+                     inequality: bool = True):
+    """The plan of `kernel` ("dual_oracle" or "dual_primal") over the buckets
+    of kernel widths, built once per objective on the card; None on the CPU
+    or when no bucket has a kernel width."""
+    if not _on_card(buckets[0].cost):
+        return None
+    slabs = [b for b in buckets if _kernel_width(b.cost.shape[-1])]
+    if not slabs:
+        return None
+    return kdo.plan_slabs(kernel, slabs, num_destinations, radius=radius,
+                          inequality=inequality)
+
+
+def _routed(buckets) -> list[int]:
+    """The buckets the width rule sends to the plain versions, counted."""
+    global width_routed
+    ids = [i for i, b in enumerate(buckets) if not _kernel_width(b.cost.shape[-1])]
+    width_routed += len(ids)
+    return ids
+
+
+def fused_dual_oracle_call(
+    buckets,  # `Bucket`s sharing m, dtype and device
+    lam: torch.Tensor,  # [m * J] fp32
+    gamma: float,
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+    plan=None,  # plan_slab_kernel("dual_oracle", ...), built here if None
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole one-pass oracle: `(x_slabs, ax [m*J], lin, sq)`.
+
+    On the card one oracle launch for all buckets of width <= 32 (one more
+    per wider bucket) and one finalize; on the CPU the plain whole call,
+    bucket by bucket."""
+    J = num_destinations
+    routed = _routed(buckets)
+    if not _on_card(buckets[0].cost) or len(routed) == len(buckets):
+        return kref.dual_oracle_call_ref(buckets, lam, gamma, J, radius,
+                                         inequality=inequality)
+    if plan is None:
+        plan = plan_slab_kernel("dual_oracle", buckets, J, radius=radius,
+                                inequality=inequality)
+    xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma)
+    if not routed:
+        return xs, ax, lin, sq
+    xs = list(xs)
+    for i in routed:  # plain version, its partials added after the kernel's
+        b = buckets[i]
+        x, hist, b_lin, b_sq = kref.dual_oracle_ref(
+            b.idx, b.coeff, b.cost, b.mask, lam, gamma, J, radius,
+            inequality=inequality, coeff_scale=b.coeff_scale, cost_scale=b.cost_scale)
+        xs.insert(i, x)
+        ax, lin, sq = ax + hist.reshape(-1), lin + b_lin, sq + b_sq
+    return tuple(xs), ax, lin, sq
+
+
+def fused_dual_primal_call(
+    buckets,
+    lam: torch.Tensor,  # [m * J] fp32
+    gamma: float,
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+    plan=None,  # plan_slab_kernel("dual_primal", ...), built here if None
+) -> tuple[torch.Tensor, ...]:
+    """The whole fused primal step: the x slabs, in the storage dtype (fp32
+    for int8).  On the card one launch for all buckets of width <= 32 (one
+    more per wider bucket); on the CPU each bucket's plain version."""
+    J = num_destinations
+    routed = _routed(buckets)
+    plain = lambda b: kref.dual_primal_ref(
+        b.idx, b.coeff, b.cost, b.mask, lam, gamma, J, radius, inequality=inequality,
+        coeff_scale=b.coeff_scale, cost_scale=b.cost_scale)
+    if not _on_card(buckets[0].cost) or len(routed) == len(buckets):
+        return tuple(plain(b) for b in buckets)
+    if plan is None:
+        plan = plan_slab_kernel("dual_primal", buckets, J, radius=radius,
+                                inequality=inequality)
+    xs = list(kdp.primal_call(plan, lam, gamma))
+    for i in routed:
+        xs.insert(i, plain(buckets[i]))
+    return tuple(xs)
 
 
 def fused_dual_oracle(
@@ -103,19 +207,14 @@ def fused_dual_oracle(
     """One-pass fused dual oracle for one bucket: `(x, hist, lin, sq)`.
 
     hist [m, J] = this bucket's A x contribution, lin = c'x, sq = ||x||^2,
-    all fp32; x is in the storage dtype (fp32 for int8).  On the kernel path
-    the per-block partials are tree-summed here.
+    all fp32; x is in the storage dtype (fp32 for int8).
     """
     args = (idx, coeff, cost, mask, lam, gamma)
     kw = dict(radius=radius, inequality=inequality,
               coeff_scale=coeff_scale, cost_scale=cost_scale)
     if not _use_kernel(cost):
         return kref.dual_oracle_ref(*args, num_destinations, **kw)
-    x, hist_p, scal_p = kdo.dual_oracle(
-        *args, num_destinations=num_destinations, **kw
-    )
-    lin, sq = scal_p.sum(dim=0)
-    return x, hist_p.sum(dim=0), lin, sq
+    return kdo.dual_oracle(*args, num_destinations=num_destinations, **kw)
 
 
 def fused_dual_primal(

@@ -3,10 +3,15 @@
 `simplex_ref` is the multi-op Duchi pipeline (sort -> cumsum -> cutoff ->
 threshold -> subtract-and-clamp); `dual_primal_ref` is the unfused primal
 step x = Pi_simplex( -(A^T lam + c) * (1/gamma) ) for one bucket slab;
-`dual_oracle_ref` is the whole one-pass oracle (primal slab + this bucket's
-A x histogram + the c'x / ||x||^2 partials).  They are the plain versions
-of the three CUDA kernels: the path every CPU tensor takes and what each
-kernel is held against on the card.
+`dual_oracle_ref` is the one-pass oracle of one bucket (primal slab + this
+bucket's A x histogram + the c'x / ||x||^2 partials) and
+`dual_oracle_call_ref` the whole oracle call over every bucket.  They are
+the plain versions of the three CUDA kernels: the path every CPU tensor
+takes and what each kernel is held against on the card.
+
+`fixed_point_hist` is for tests only: A x summed as the oracle kernel sums
+it, in int64 fixed point, which is exact, so the kernel's A x equals it bit
+for bit on the card.
 
 Narrow slabs follow the kernel's contract: widened to fp32 on load (int8
 times its per-bucket scales), every reduction in fp32, and x written back in
@@ -21,7 +26,13 @@ import torch
 from repro_torch.core.objective import _acc32, binned_segment_sum, gather_at_lam, inv_gamma
 from repro_torch.core.projections import project_simplex
 
-__all__ = ["simplex_ref", "dual_primal_ref", "dual_oracle_ref"]
+__all__ = [
+    "dual_oracle_call_ref",
+    "dual_oracle_ref",
+    "dual_primal_ref",
+    "fixed_point_hist",
+    "simplex_ref",
+]
 
 
 def _dequant(coeff, cost, mask, coeff_scale, cost_scale):
@@ -103,3 +114,58 @@ def dual_oracle_ref(
     sq = torch.dot(x.reshape(-1), x.reshape(-1))
     x_out = x if x.dtype == out_dtype else x.to(out_dtype)
     return x_out, hist, lin, sq
+
+
+def dual_oracle_call_ref(
+    buckets,  # Buckets (or kernels.dual_oracle.Slab) sharing m and dtype
+    lam: torch.Tensor,
+    gamma,
+    J: int,
+    radius: float = 1.0,
+    *,
+    inequality: bool = True,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole oracle call: `(x_slabs, ax [m*J], lin, sq)`, each bucket's
+    `dual_oracle_ref` summed in bucket order starting from zeros."""
+    ax2 = torch.zeros((buckets[0].coeff.shape[0], J), dtype=torch.float32,
+                      device=lam.device)
+    lin = sq = 0.0
+    x_slabs = []
+    for b in buckets:
+        x, hist, b_lin, b_sq = dual_oracle_ref(
+            b.idx, b.coeff, b.cost, b.mask, lam, gamma, J, radius,
+            inequality=inequality, coeff_scale=b.coeff_scale, cost_scale=b.cost_scale,
+        )
+        x_slabs.append(x)
+        ax2 = ax2 + hist
+        lin = lin + b_lin
+        sq = sq + b_sq
+    return tuple(x_slabs), ax2.reshape(-1), lin, sq
+
+
+def fixed_point_hist(
+    buckets,
+    lam: torch.Tensor,
+    gamma,
+    J: int,
+    shift: int,
+    radius: float = 1.0,
+    *,
+    inequality: bool = True,
+) -> torch.Tensor:
+    """A x [m*J] as the oracle kernel sums it (test-only): each contribution
+    coeff_k * x in fp32, times 2^shift, rounded half to even into an int64,
+    summed exactly per bin (`index_add_`), then converted to fp32 once and
+    scaled by 2^-shift.  x is the plain version's fp32 x."""
+    m = buckets[0].coeff.shape[0]
+    acc = torch.zeros(m * J, dtype=torch.int64, device=lam.device)
+    offs = torch.arange(m, device=lam.device, dtype=torch.int64)[:, None] * J
+    for b in buckets:
+        coeff, cost, mask = _dequant(b.coeff, b.cost, b.mask, b.coeff_scale, b.cost_scale)
+        x = dual_primal_ref(b.idx, coeff, cost, mask, lam, gamma, J, radius,
+                            inequality=inequality)
+        contrib = (coeff * x[None]).double() * 2.0 ** shift  # exact in fp64
+        q = torch.round(contrib).to(torch.int64)  # half to even
+        bins = (b.idx.reshape(1, -1).long() + offs).reshape(-1)
+        acc.index_add_(0, bins, q.reshape(-1))
+    return acc.to(torch.float32) * 2.0 ** -shift

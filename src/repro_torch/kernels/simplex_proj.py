@@ -16,15 +16,14 @@ at once, at most one per tile.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dual_oracle import (
     MAX_FUSED_LENGTH,
-    LaunchPlan,
     SMEM_PER_BLOCK,
-    SMEM_PER_SM,
     _cdiv,
     _scan_chunk,
 )
@@ -33,10 +32,19 @@ __all__ = ["launches", "plan_launch", "simplex_proj"]
 
 MAX_WARPS = 8  # kMaxWarps in the kernel
 UNROLL = 4  # kUnroll: 32-slot groups a warp loads together
+SMEM_PER_SM = 233_472  # 228 KB per SM, 1 KB of it reserved per resident block
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since import (reset freely by callers)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    grid: int  # persistent blocks
+    warps: int  # warps per block
+    smem_bytes: int
+    scan_chunk: int  # wide rows: chunk of the cumsum order (see _scan_chunk)
 
 
 def plan_launch(n: int, L: int, num_sms: int) -> LaunchPlan:
@@ -52,7 +60,7 @@ def plan_launch(n: int, L: int, num_sms: int) -> LaunchPlan:
     else:  # one warp per row
         tasks = _cdiv(n, warps)
     grid = max(1, min(num_sms * per_sm, tasks))
-    return LaunchPlan(grid, warps, False, smem, _scan_chunk(n, L))
+    return LaunchPlan(grid, warps, smem, _scan_chunk(n, L))
 
 
 _fn = None

@@ -53,11 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="slab storage dtype (coeff/cost/mask); duals and "
                          "all accumulation stay fp32")
     ap.add_argument("--fused-kernel", action="store_true",
-                    help="fused primal step (one kernel launch per bucket "
-                         "per iteration computes x)")
+                    help="fused primal step (one kernel launch per "
+                         "iteration computes x)")
     ap.add_argument("--fused-oracle", action="store_true",
-                    help="one-pass fused dual oracle (one kernel launch per "
-                         "bucket per iteration)")
+                    help="one-pass fused dual oracle (one kernel launch and "
+                         "one finalize per iteration)")
     ap.add_argument("--shards", type=int, default=1,
                     help="processes of the column-sharded solve, one per "
                          "card (run under torchrun --nproc_per_node N)")

@@ -11,7 +11,9 @@ Every test is marked `cuda` and skips (in a fixture, at run time) when
 Tolerances: x atol 3e-5 (fp32, int8) / 2e-2 (bf16) as tests/test_kernels.py;
 hist, c'x and ||x||^2 atol 3e-5 + rtol 1e-5 as tests/test_dual_oracle.py.
 The primal-step kernel calls the oracle's own __device__ functions, so its x
-is held bitwise equal to the oracle's.
+is held bitwise equal to the oracle's.  The oracle sums A x in int64 fixed
+point, exactly, so its A x is held bitwise equal to `ref.fixed_point_hist`
+and the same under any grid.
 No JAX here: the machine with the card need not have it.
 """
 import numpy as np
@@ -93,11 +95,75 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         kdo.dual_oracle(b.idx, b.coeff.half(), b.cost.half(), b.mask.half(),
                         lam, 1.0, num_destinations=64)
-    with pytest.raises(ValueError, match="capacity"):
-        big = torch.zeros(60_000, device=cuda)
-        kops.fused_dual_oracle(*args[:4], big, 1.0, num_destinations=60_000)
+    with pytest.raises(ValueError, match="lam"):  # lam of the wrong size
+        kops.fused_dual_oracle(*args[:4], torch.zeros(60_000, device=cuda), 1.0,
+                               num_destinations=64)
     with pytest.raises(ValueError, match="contiguous"):
         kdo.dual_oracle(b.idx.t().contiguous().t(), *args[1:], num_destinations=64)
+
+
+def _slabs(seed, widths, n, m, J, dtype, device):
+    """Buckets of several widths (padded rows, repeated idx) and one lam."""
+    out = [_bucket(seed + k, n if L <= 64 else 9, L, m, J, dtype, device)
+           for k, L in enumerate(widths)]
+    return [b for b, _ in out], out[0][1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("inequality", [True, False])
+def test_whole_call_matches_plain_and_fixed_point(cuda, dtype, m, inequality):
+    """One oracle call over buckets of widths 1..32 and 64 (one narrow and one
+    wide launch, one finalize) against the plain whole call; A x bitwise the
+    fixed-point plain sum."""
+    J = 64
+    buckets, lam = _slabs(7, (1, 2, 8, 32, 64), 300, m, J, dtype, cuda)
+    plan = kops.plan_slab_kernel("dual_oracle", buckets, J, inequality=inequality)
+    assert [p.wide for p in plan.launches] == [False, True]
+    for gamma in (0.01, 1.0, 100.0):
+        before, fin = kdo.launches, kdo.finalize_launches
+        xs, ax, lin, sq = kops.fused_dual_oracle_call(
+            buckets, lam, gamma, num_destinations=J, inequality=inequality, plan=plan)
+        assert (kdo.launches - before, kdo.finalize_launches - fin) == (2, 1)
+        wxs, wax, wlin, wsq = kref.dual_oracle_call_ref(buckets, lam, gamma, J,
+                                                        inequality=inequality)
+        for x, wx in zip(xs, wxs):
+            assert x.dtype == wx.dtype
+            np.testing.assert_allclose(x.float().cpu().numpy(), wx.float().cpu().numpy(),
+                                       atol=X_ATOL[dtype])
+        for a, w in ((ax, wax), (lin, wlin), (sq, wsq)):
+            np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=3e-5, rtol=1e-5)
+        fixed = kref.fixed_point_hist(buckets, lam, gamma, J, plan.shift,
+                                      inequality=inequality)
+        assert torch.equal(ax, fixed)
+
+
+@pytest.mark.parametrize("J", [10_000, 40_000])
+def test_ax_is_the_same_under_any_grid(cuda, J):
+    """A x is exact, so three grids give the same bits, with the histogram
+    in shared memory (J = 10k) and past it, in global memory (J = 40k)."""
+    buckets, lam = _slabs(3, (4, 8, 16), 5000, 1, J, "float32", cuda)
+    plans = [kops.plan_slab_kernel("dual_oracle", buckets, J)]
+    plans += [kdo.plan_slabs("dual_oracle", buckets, J, grid=g) for g in (7, 1)]
+    modes = {p.launches[0].layout.hist_mode for p in plans}
+    assert modes == {kdo.HIST_GLOBAL if J > 29_000 else kdo.HIST_SHARED}
+    assert len({p.launches[0].grid for p in plans}) == 3
+    outs = [kdo.oracle_call(p, lam, 0.5) for p in plans]
+    for xs, ax, lin, sq in outs[1:]:
+        assert torch.equal(ax, outs[0][1])
+        assert all(torch.equal(a, b) for a, b in zip(xs, outs[0][0]))
+    fixed = kref.fixed_point_hist(buckets, lam, 0.5, J, plans[0].shift)
+    assert torch.equal(outs[0][1], fixed)
+
+
+def test_primal_call_is_one_launch_and_the_oracles_x(cuda):
+    buckets, lam = _slabs(11, (1, 4, 16, 32), 700, 2, 64, "bfloat16", cuda)
+    plan = kops.plan_slab_kernel("dual_primal", buckets, 64)
+    before = kdp.launches
+    xs = kops.fused_dual_primal_call(buckets, lam, 0.3, num_destinations=64, plan=plan)
+    assert kdp.launches - before == 1
+    oracle_xs = kops.fused_dual_oracle_call(buckets, lam, 0.3, num_destinations=64)[0]
+    assert all(torch.equal(a, b) for a, b in zip(xs, oracle_xs))
 
 
 def test_fused_solve_launches_kernel_and_matches_cpu(cuda):
@@ -105,11 +171,15 @@ def test_fused_solve_launches_kernel_and_matches_cpu(cuda):
                                 avg_degree=6.0, num_families=2, seed=4)
     edges = generate_matching_instance(spec)
     cfg = MaximizerConfig(iters_per_stage=20)
-    kdo.launches = 0
+    kdo.launches = kdo.finalize_launches = 0
     kops.width_routed = 0
     packed = bucketize(edges, device=cuda)
-    on_card = Maximizer(MatchingObjective(packed, fused_oracle=True), cfg).solve()
-    assert kdo.launches == len(packed.buckets) * (cfg.total_iters + 1)
+    obj = MatchingObjective(packed, fused_oracle=True)
+    on_card = Maximizer(obj, cfg).solve()
+    calls = cfg.total_iters + 1
+    wide = sum(b.length > 32 for b in packed.buckets)
+    assert len(obj.kernel_plan("dual_oracle").launches) == 1 + wide
+    assert kdo.launches == (1 + wide) * calls and kdo.finalize_launches == calls
     assert kops.width_routed == 0
     on_cpu = Maximizer(
         MatchingObjective(packed.to("cpu"), fused_oracle=True), cfg
@@ -145,8 +215,7 @@ def test_primal_kernel_matches_plain_version_and_oracle(cuda, dtype, L, m, inequ
 @pytest.mark.parametrize("L,n,m,J", [(16, 3000, 1, 70_000), (256, 37, 3, 20_000)])
 def test_primal_kernel_reads_lam_through_l2(cuda, dtype, L, n, m, J):
     """m*J past shared memory: the plan reads lam through L1/L2."""
-    props = torch.cuda.get_device_properties(cuda)
-    assert not kdp.plan_launch(n, L, m, J, props.multi_processor_count).lam_in_smem
+    assert not kdo.primal_layout(L, m, J).lam_in_smem
     b, lam = _bucket(L + m, n, L, m, J, dtype, cuda)
     for gamma, inequality in ((0.01, True), (1.0, False), (100.0, True)):
         args = (b.idx, b.coeff, b.cost, b.mask, lam, gamma)
@@ -197,11 +266,16 @@ def test_primal_and_simplex_kernels_refuse_what_they_cannot_take(cuda):
 
 
 def _small_solve(device, **objective_kw):
+    """The solve, and the kernel launches per call of its fused primal plan
+    (one, plus one per bucket wider than 32) or, without one, its buckets."""
     spec = MatchingInstanceSpec(num_sources=3000, num_destinations=60,
                                 avg_degree=6.0, num_families=2, seed=4)
     packed = bucketize(generate_matching_instance(spec), device=device)
     obj = MatchingObjective(packed, **objective_kw)
-    return Maximizer(obj, MaximizerConfig(iters_per_stage=20)).solve(), len(packed.buckets)
+    res = Maximizer(obj, MaximizerConfig(iters_per_stage=20)).solve()
+    if objective_kw.get("fused_kernel"):
+        return res, 1 + sum(b.length > 32 for b in packed.buckets)
+    return res, len(packed.buckets)
 
 
 def _rel_lam(a, b):

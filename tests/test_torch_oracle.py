@@ -139,24 +139,31 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     args = (bt["idx"], bt["coeff"], bt["cost"], bt["mask"], torch.from_numpy(lam), 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         kdo.dual_oracle(*args, num_destinations=J)
-    # capacity gate: the [m, J] histogram must fit in shared memory
-    with pytest.raises(ValueError, match="capacity"):
-        kdo.plan_launch(1000, 8, 2, 40_000, 132)
-    # main-path bucket: one block histogram + lam in smem, two blocks per SM
-    plan = kdo.plan_launch(500_000, 8, 1, 10_000, 132)
-    assert plan.lam_in_smem and plan.warps == 8 and plan.grid == 2 * 132
-    assert plan.smem_bytes == 4 * (2 * 10_000 + 16 + 2 * 8 * 128 + 8)
-    # small bucket: as many blocks as it has tiles of 8 warps x 4 x 32 slots
-    assert kdo.plan_launch(2616, 1, 1, 10_000, 132).grid == 3
-    # wide rows: a histogram and two 32 KB rows per warp, a warp per row
-    wide = kdo.plan_launch(29, 8192, 3, 64, 132)
-    assert wide.warps == 3 and wide.grid == 10
+    with pytest.raises(ValueError, match="CUDA"):
+        kdo.plan_slabs("dual_oracle", [kdo.Slab(*args[:4])], J)
+    with pytest.raises(ValueError, match="families"):
+        kdo.family_template(9)
+    assert [kdo.family_template(k) for k in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8, 8]
+    # capacity: past shared memory the int64 histogram moves to one global
+    # row (L2 atomics) instead of raising
+    assert kdo.oracle_layout(8, 2, 40_000).hist_mode == kdo.HIST_GLOBAL
+    # main-path bucket: int64 histogram + lam in shared memory, 1024 threads
+    plan = kdo.oracle_layout(8, 1, 10_000)
+    assert plan.lam_in_smem and plan.warps == 32 and plan.hist_mode == kdo.HIST_SHARED
+    assert plan.smem_bytes == 8 * 10_000 + 4 * 10_000 + 256
+    # small bucket: 2616 slots of width 1 are 82 groups, 21 warp tasks
+    assert kdo.narrow_tasks([(2616, 1)]) == ([0], 21)
+    # wide rows: the histogram and two 32 KB rows per warp, a warp per row
+    wide = kdo.oracle_layout(8192, 3, 64)
+    assert wide.warps == 3 and wide.hist_mode == kdo.HIST_SHARED and wide.lam_in_smem
     # the cumsum order of PyTorch's CUDA scan: chunks of 2 * num_threads_x
     assert [kdo._scan_chunk(n, L) for n, L in
             [(9, 8192), (37, 512), (1000, 64), (10**6, 64), (20, 16)]] == [
         1024, 128, 32, 64, 16]
-    far = kdo.plan_launch(1000, 8, 1, 40_000, 132)  # lam read through L1/L2
-    assert not far.lam_in_smem and far.warps == 8
+    far = kdo.oracle_layout(8, 1, 40_000)  # histogram global, lam still staged
+    assert far.hist_mode == kdo.HIST_GLOBAL and far.lam_in_smem and far.warps == 32
+    farther = kdo.primal_layout(8, 1, 60_000)  # lam read through L1/L2
+    assert not farther.lam_in_smem and farther.warps == 32
 
 
 def test_slot_bytes_model():
@@ -164,7 +171,10 @@ def test_slot_bytes_model():
     assert tops.oracle_slab_slot_bytes(1, "bfloat16") == 12
     assert tops.oracle_slab_slot_bytes(1, "int8") == 11
     assert tops.oracle_slab_slot_bytes(3, torch.float32) == jops.oracle_slab_slot_bytes(3)
-    assert tops.oracle_hist_partial_bytes(500_000, 8, 1, 10_000, 132) == 2 * 4 * 264 * 10_000
+    # one int64 [m, J] row: zeroed, added into once per bin and block of the
+    # persistent grid, read by the finalize
+    assert tops.oracle_hist_partial_bytes(132, 1, 10_000) == 8 * 134 * 10_000
+    assert tops.oracle_hist_partial_bytes(132, 1, 10_000, kdo.HIST_GLOBAL) == 8 * 2 * 10_000
 
 
 def test_binned_segment_sum_matches_scatter():
