@@ -20,7 +20,9 @@ Phases, each printing one line before the last:
      sweep2 / sweep3: the primal-step and simplex kernels the same way over
      every power-of-two width up to 8192, two radii included, with the
      primal kernel's x held bitwise equal to the oracle's, and the primal
-     kernel also at m*J past shared memory (lam read through L1/L2);
+     kernel also at m*J past shared memory (lam read through L1/L2); the
+     simplex kernel's x bitwise its plain version's in every case, whole
+     calls of nine widths in one plan and three grid sizes included;
   4. main path: the one-shot fused-oracle AGD solve of
      `python -m repro_torch.launch.solve` in-process at 1M sources x 10k
      destinations, with the kernel's launch count checked against the
@@ -31,12 +33,14 @@ Phases, each printing one line before the last:
      1 over NCCL) with the fused primal kernel, against the main path and
      the single-device solve;
      path3: the same instance solved with the simplex kernel as the unfused
-     oracle's projection, against the same solve with the plain projection;
+     oracle's projection (one launch per oracle call), against the same
+     solve with the plain projection;
      two_ranks: a small sharded solve in two processes sharing the card
      over gloo, against one process;
   5. times: each kernel's output at the main path's shapes held against
      its plain version; each kernel, its plain version and its HBM bound
-     there, per bucket and per whole call, by CUDA events; the all-reduce of the sharded solve at
+     there, per bucket and per whole call, by CUDA events (the simplex
+     kernel also by profiler device time, at fp32 and bf16); the all-reduce of the sharded solve at
      world size 1; and the device's busy share over a profiled window of
      AGD iterations (torch.profiler).
 Every path is driven with all launch counters set to 0 just before it and
@@ -185,18 +189,20 @@ def oracle_args(b, lam, gamma, J, inequality):
 
 
 def ptxas_summary(logs: dict) -> dict:
-    """Registers and spill stores of every kernel entry, from the build's
-    `nvcc -Xptxas -v` output, by demangled name (a library built by an
-    earlier process of the same checkout has no output here)."""
+    """Registers, spill stores and stack frame bytes (local memory) of every
+    kernel entry, from the build's `nvcc -Xptxas -v` output, by demangled
+    name (a library built by an earlier process of the same checkout has no
+    output here)."""
     out = {k: "not built in this process" for k in KERNELS}
     for kernel, log in logs.items():
         rows, name = {}, None
         for ln in log.splitlines():
             if mm := re.search(r"Compiling entry function '([^']+)'", ln):
                 name = mm.group(1)
-                rows[name] = [None, None]
-            elif name and (mm := re.search(r"(\d+) bytes spill stores", ln)):
-                rows[name][1] = int(mm.group(1))
+                rows[name] = [None, None, None]
+            elif name and (mm := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                                           ln)):
+                rows[name][1:] = [int(mm.group(2)), int(mm.group(1))]
             elif name and (mm := re.search(r"Used (\d+) registers", ln)):
                 rows[name][0] = int(mm.group(1))
         try:
@@ -212,12 +218,14 @@ def ptxas_summary(logs: dict) -> dict:
 def phase_kernel_info(ptxas: dict) -> dict:
     """Registers, spills and resident blocks per SM of the oracle's and the
     primal step's instantiations (the runtime's attributes, at the main
-    path's m*J = 10k layout), ptxas's registers and spill stores of every
-    kernel entry, and the SASS opcode of the oracle's shared int64 add."""
+    path's m*J = 10k layout) and of the simplex kernel's, ptxas's registers
+    and spill stores of every kernel entry, and the SASS opcode of the
+    oracle's shared int64 add."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels import dual_oracle as kdo
+    from repro_torch.kernels import simplex_proj as ksp
 
     runtime = {}
     for kernel, layout in (("dual_oracle", kdo.oracle_layout), ("dual_primal", kdo.primal_layout)):
@@ -228,6 +236,18 @@ def phase_kernel_info(ptxas: dict) -> dict:
                                        lay.smem_bytes)
                 runtime[f"{kernel} {'wide' if L > 32 else 'narrow'} fp32 M={M}"] = {
                     "threads": 32 * lay.warps, "smem_bytes": lay.smem_bytes, **info}
+    card = torch.device("cuda", 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        threads = 32 * ksp.MAX_WARPS
+        smem = ksp.MAX_WARPS * ksp.stage_bytes(ksp.REGISTER_MAX_WIDTH, dtype)
+        runtime[f"simplex_proj narrow {name}"] = {
+            "threads": threads, "smem_bytes": smem,
+            **ksp.kernel_info(card, dtype, False, threads, smem)}
+        warps = ksp.wide_warps(8192)
+        runtime[f"simplex_proj wide {name} L=8192"] = {
+            "threads": 32 * warps, "smem_bytes": 8 * warps * 8192,
+            **ksp.kernel_info(card, dtype, True, 32 * warps, 8 * warps * 8192)}
     sass = subprocess.run(
         [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass",
          str(build._library("dual_oracle"))], capture_output=True, text=True, timeout=300,
@@ -446,7 +466,10 @@ def phase_sweep2(device) -> dict:
 
 
 def phase_sweep3(device) -> dict:
-    """The simplex kernel against its plain version."""
+    """The simplex kernel against its plain version: one slab a call over
+    every width, then whole calls of nine slabs of widths 1 to 8192 in one
+    plan (one narrow launch, three wide), then one plan under three grid
+    sizes; x bitwise the plain version's in every case."""
     import numpy as np
     import torch
 
@@ -454,36 +477,73 @@ def phase_sweep3(device) -> dict:
     from repro_torch.kernels import simplex_proj as ksp
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    cases = exact = 0
+    counts = {"cases": 0, "exact": 0, "whole_cases": 0, "whole_exact": 0}
     bad = []
     rng = np.random.default_rng(2)
-    for L in (1 << k for k in range(14)):
-        n = sweep_rows(L)
+
+    def candidates(n, L):
         v32 = torch.from_numpy((rng.normal(size=(n, L)) * 2).astype(np.float32))
         mask32 = torch.from_numpy((rng.random((n, L)) < 0.7).astype(np.float32))
         mask32[:5] = 0.0
+        return v32, mask32
+
+    def check(got, v, mask, radius, inequality, tag, key):
+        want = kref.simplex_ref(v, mask, radius, inequality=inequality)
+        torch.cuda.synchronize()
+        dtype = str(v.dtype).removeprefix("torch.")
+        tag = f"{tag} {dtype} r={radius} ineq={inequality}"
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        if got.dtype != v.dtype or not err <= X_ATOL[dtype]:
+            bad.append(f"{got.dtype} max error {err} ({tag})")
+        if got.numel() and float(got[:5].float().abs().max()) != 0.0:
+            bad.append(f"padded rows not exactly zero ({tag})")
+        exact = bool(torch.equal(got, want))
+        if not exact:
+            bad.append(f"not bitwise the plain version ({tag})")
+        worst[dtype] = max(worst[dtype], err)
+        counts[key] += 1
+        counts[key.replace("cases", "exact")] += int(exact)
+
+    for L in (1 << k for k in range(14)):
+        v32, mask32 = candidates(sweep_rows(L), L)
         for dtype in worst:
             dt = getattr(torch, dtype)
             v, mask = v32.to(device, dt), mask32.to(device, dt)
             for radius in (1.0, 2.5):
                 for inequality in (True, False):
                     got = ksp.simplex_proj(v, mask, radius, inequality=inequality)
-                    want = kref.simplex_ref(v, mask, radius, inequality=inequality)
-                    torch.cuda.synchronize()
-                    tag = f"L={L} {dtype} r={radius} ineq={inequality}"
-                    err = float((got.float() - want.float()).abs().max())
-                    if got.dtype != dt or not err <= X_ATOL[dtype]:
-                        bad.append(f"{got.dtype} max error {err} ({tag})")
-                    if float(got[:5].float().abs().max()) != 0.0:
-                        bad.append(f"padded rows not exactly zero ({tag})")
-                    worst[dtype] = max(worst[dtype], err)
-                    exact += int(torch.equal(got, want))
-                    cases += 1
-    out = {"phase": "sweep3", "cases": cases, "worst_abs_err": worst,
-           "bitwise_equal_plain_cases": exact}
+                    check(got, v, mask, radius, inequality, f"L={L}", "cases")
+    widths = (1, 2, 4, 8, 16, 32, 64, 512, 8192)
+    slabs = [candidates(3000 if L <= 32 else sweep_rows(L), L) for L in widths]
+    shapes = [tuple(v.shape) for v, _ in slabs]
+    for dtype in worst:
+        dt = getattr(torch, dtype)
+        vs = [v.to(device, dt) for v, _ in slabs]
+        masks = [m.to(device, dt) for _, m in slabs]
+        for radius in (1.0, 2.5):
+            for inequality in (True, False):
+                plan = ksp.plan_simplex(shapes, dt, device, radius=radius, inequality=inequality)
+                if [p.wide for p in plan.launches] != [False, True, True, True]:
+                    fail(f"simplex whole call of {widths} in {len(plan.launches)} launches")
+                outs = ksp.simplex_call(plan, vs, masks)
+                for got, v, mask, L in zip(outs, vs, masks, widths):
+                    check(got, v, mask, radius, inequality, f"whole call L={L}", "whole_cases")
+    vs = [v.to(device) for v, _ in slabs]
+    masks = [m.to(device) for _, m in slabs]
+    plans = [ksp.plan_simplex(shapes, torch.float32, device, grid=g) for g in (None, 7, 1)]
+    outs = [ksp.simplex_call(p, vs, masks) for p in plans]
+    across = all(torch.equal(a, b) for out in outs[1:] for a, b in zip(out, outs[0]))
+    out = {"phase": "sweep3", "cases": counts["cases"], "worst_abs_err": worst,
+           "bitwise_equal_plain_cases": counts["exact"],
+           "whole_call_cases": counts["whole_cases"],
+           "whole_call_bitwise_equal_plain_cases": counts["whole_exact"],
+           "register_max_width": ksp.REGISTER_MAX_WIDTH,
+           "grids": [p.launches[0].grid for p in plans], "bitwise_equal_across_grids": across}
     emit(out)
     if bad:
-        fail(f"{len(bad)} of {cases} simplex-kernel sweep cases out of tolerance: {bad[:8]}")
+        fail(f"{len(bad)} simplex-kernel sweep cases out of tolerance or not bitwise: {bad[:8]}")
+    if not across:
+        fail("simplex kernel's x differs between grid sizes")
     return out
 
 
@@ -589,6 +649,14 @@ def launch_summary(lp) -> dict:
             "spill_bytes": lp.spill_bytes}
 
 
+def simplex_launch_summary(lp) -> dict:
+    """What one planned simplex launch runs with."""
+    return {"wide": lp.wide, "slabs": len(lp.slabs), "grid": lp.grid, "threads": lp.threads,
+            "smem_bytes": lp.smem_bytes, "stage_bytes": lp.stage_bytes, "tasks": lp.tasks,
+            "blocks_per_sm": lp.blocks_per_sm,
+            "registers": lp.registers, "spill_bytes": lp.spill_bytes}
+
+
 def rel_diff(a, b) -> float:
     return abs(float(a) - float(b)) / abs(float(b))
 
@@ -684,22 +752,25 @@ def phase_path3(main) -> dict:
     kernel, plain = UnitSimplexProjection(use_kernel=True), UnitSimplexProjection()
     runs = {}
     for name, proj in (("kernel", kernel), ("plain", plain)):
+        obj = MatchingObjective(inst, projection=proj)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        res = Maximizer(MatchingObjective(inst, projection=proj), r.config).solve()
+        res = Maximizer(obj, r.config).solve()
         torch.cuda.synchronize()
-        runs[name] = (res, time.perf_counter() - t0, read_counts())
-    (res, solve_s, counts), (plain_res, plain_s, plain_counts) = runs["kernel"], runs["plain"]
-    profiled = profile_iterations(
-        local_calculate(MatchingObjective(inst, projection=kernel)), res.lam,
-        r.config.gammas[-1], "path3")
-    expect = len(inst.buckets) * (r.total_iters + 1)
+        runs[name] = (res, time.perf_counter() - t0, read_counts(), obj)
+    (res, solve_s, counts, obj), (plain_res, plain_s, plain_counts, _) = (runs["kernel"],
+                                                                          runs["plain"])
+    profiled = profile_iterations(local_calculate(obj), res.lam, r.config.gammas[-1], "path3")
+    plan = obj.kernel_plan("simplex_proj")
+    calls = r.total_iters + 1
+    expect = len(plan.launches) * calls  # one launch a call: every bucket has L <= 32
     out = {
         "phase": "path3", "iterations": r.total_iters,
         "ms_per_iter": solve_s / r.total_iters * 1e3,
         "plain_projection_ms_per_iter": plain_s / r.total_iters * 1e3,
-        "launch_counts": counts, "expected_launches": expect,
+        "launch_counts": counts, "expected_launches": expect, "oracle_calls": calls,
+        "simplex_launch": simplex_launch_summary(plan.launches[0]),
         "g": float(res.g),
         "rel_g_vs_plain": rel_diff(res.g, plain_res.g),
         "rel_lam_vs_plain": rel_l2(res.lam, plain_res.lam),
@@ -707,9 +778,10 @@ def phase_path3(main) -> dict:
     }
     emit(out)
     emit(profiled)
-    if (counts["simplex_proj"] != expect or counts["dual_oracle"] or counts["dual_primal"]
-            or counts["dual_oracle_finalize"]):
-        fail(f"path 3 launches {counts}, expected {expect} of the simplex kernel")
+    if (counts["simplex_proj"] != expect or expect != calls or counts["dual_oracle"]
+            or counts["dual_primal"] or counts["dual_oracle_finalize"]
+            or counts["width_routed"]):
+        fail(f"path 3 launches {counts}, expected {calls} of the simplex kernel, one a call")
     if plain_counts["simplex_proj"]:
         fail("the plain projection launched the simplex kernel")
     if not (out["rel_g_vs_plain"] <= 1e-5 and out["rel_lam_vs_plain"] <= 1e-4):
@@ -817,10 +889,7 @@ def phase_times(main) -> dict:
     call_bytes = 4 * m * J * 2 + 8  # lam read, A x and (c'x, ||x||^2) written
 
     def bound(byts, ops):
-        b_ms, o_ms = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
-        return {"bytes": byts, "fp32_ops": ops, "bytes_bound_ms": b_ms,
-                "ops_bound_ms": o_ms, "bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        return {"bytes": byts, "fp32_ops": ops, **bound_of(byts, ops)}
 
     rows = []
     for b in inst.buckets:
@@ -912,12 +981,38 @@ def phase_times(main) -> dict:
     return {"call": out, "finalize": fin}
 
 
+def device_ms(fn, reps: int, pattern: str) -> float:
+    """Device time per call of `fn` spent in the kernels whose name matches
+    `pattern`, from a torch.profiler trace of `reps` calls (the kernels'
+    own time, free of the host's launch overhead)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that lost the window's device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU and re.search(pattern, e.key))
+        if us > 0:
+            return us / 1e3 / reps
+    return "not measured"
+
+
+SIMPLEX_KERNELS = r"simplex_(narrow|wide)"
+
+
 def phase_times_primal_simplex(main) -> dict:
     """The primal-step and simplex kernels at the main path's shapes: per
-    bucket and per call (all buckets; the primal step in one launch), by
-    CUDA events, against their plain versions and their HBM bounds.  The
+    bucket (one-bucket plans) and per call (all buckets, one launch), by
+    CUDA events and, for the simplex kernel, by device time from the
+    profiler, against their plain versions and their HBM bounds.  The
     simplex kernel projects the unfused oracle's primal candidates at the
-    main path's final duals."""
+    main path's final duals, in fp32 (the path's) and in bf16."""
     import torch
 
     from repro_torch.core.objective import gather_at_lam, inv_gamma
@@ -938,39 +1033,49 @@ def phase_times_primal_simplex(main) -> dict:
     bytes2 = lambda b: b.idx.numel() * slot2
     ops2 = lambda b: b.idx.numel() * (2 * m + 2 + sort_scan(lg(b)))
     # the simplex kernel: v and mask read, out written, per slot
-    bytes3 = lambda b: b.idx.numel() * 3 * b.cost.element_size()
+    bytes3 = lambda b, size=4: b.idx.numel() * 3 * size
     ops3 = lambda b: b.idx.numel() * sort_scan(lg(b))
     lam2 = lam.reshape(m, J)
     ginv = inv_gamma(gamma)
     vs = [-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv for b in inst.buckets]
+    masks = [b.mask for b in inst.buckets]
     plain2 = lambda b: kref.dual_primal_ref(b.idx, b.coeff, b.cost, b.mask, lam, gamma, J)
     plans2 = [kdo.plan_slabs("dual_primal", [b], J) for b in inst.buckets]
     whole2 = kdo.plan_slabs("dual_primal", inst.buckets, J)
+    plans3 = [ksp.plan_simplex([tuple(v.shape)], v.dtype, v.device) for v in vs]
+    whole3 = kops.plan_slab_kernel("simplex_proj", inst.buckets, J)
+    if len(whole3.launches) != 1:
+        fail(f"simplex plan of the main path in {len(whole3.launches)} launches")
 
     # each kernel at the main path's shapes against its plain version
     atol = X_ATOL[inst.slab_dtype]
     held_by = {"primal": [], "simplex": []}
     xs = kdp.primal_call(whole2, lam, gamma)
-    for b, v, x in zip(inst.buckets, vs, xs):
+    ws = ksp.simplex_call(whole3, vs, masks)
+    for b, v, x, w in zip(inst.buckets, vs, xs, ws):
         held_by["primal"].append(held(x, plain2(b), atol))
-        held_by["simplex"].append(held(ksp.simplex_proj(v, b.mask),
-                                       kref.simplex_ref(v, b.mask), atol))
+        held_by["simplex"].append(held(w, kref.simplex_ref(v, b.mask), atol))
     oracle_xs = kdo.oracle_call(r.objective.kernel_plan("dual_oracle"), lam, gamma)[0]
     x_equal = all(torch.equal(a, c) for a, c in zip(xs, oracle_xs))
     if not x_equal:
         fail("primal kernel's x differs from the oracle's on the main path's buckets")
+    if not all(exact for _, exact in held_by["simplex"]):
+        fail("simplex kernel's x differs from the plain version's on the main path's buckets")
 
     rows = []
-    for b, v, p1 in zip(inst.buckets, vs, plans2):
+    for b, v, p2, p3 in zip(inst.buckets, vs, plans2, plans3):
         reps = 50 if b.idx.numel() > 100_000 else 200
+        one3 = lambda: ksp.simplex_call(p3, [v], [b.mask])
         rows.append({
             "L": b.length, "rows": b.rows, "slots": b.idx.numel(),
-            "primal_launch": launch_summary(p1.launches[0]),
-            "primal_kernel_ms": event_ms(lambda: kdp.primal_call(p1, lam, gamma), reps),
+            "primal_launch": launch_summary(p2.launches[0]),
+            "primal_kernel_ms": event_ms(lambda: kdp.primal_call(p2, lam, gamma), reps),
             "primal_plain_ms": event_ms(lambda: plain2(b), max(5, reps // 10)),
             "primal_bound_ms": max((bytes2(b) + 4 * m * J) / HBM_BYTES_PER_S,
                                    ops2(b) / FP32_FLOPS) * 1e3,
-            "simplex_kernel_ms": event_ms(lambda: ksp.simplex_proj(v, b.mask), reps),
+            "simplex_launch": simplex_launch_summary(p3.launches[0]),
+            "simplex_kernel_ms": event_ms(one3, reps),
+            "simplex_device_ms": device_ms(one3, 20, SIMPLEX_KERNELS),
             "simplex_plain_ms": event_ms(lambda: kref.simplex_ref(v, b.mask),
                                          max(5, reps // 10)),
             "simplex_bound_ms": max(bytes3(b) / HBM_BYTES_PER_S, ops3(b) / FP32_FLOPS) * 1e3,
@@ -984,28 +1089,55 @@ def phase_times_primal_simplex(main) -> dict:
     out = {"phase": "times_call_primal_simplex", "library_ms": None,
            "library_note": "no single PyTorch call computes either function",
            "primal_launch": launch_summary(whole2.launches[0]),
+           "simplex_launch": simplex_launch_summary(whole3.launches[0]),
            "x_bitwise_equal_oracle": x_equal}
     for name, bytes_fn, ops_fn, extra in (("primal", bytes2, ops2, 4 * m * J),
                                           ("simplex", bytes3, ops3, 0)):
         byts = sum(bytes_fn(b) for b in inst.buckets) + extra
         ops = sum(ops_fn(b) for b in inst.buckets)
-        out[name] = {"bytes": byts, "fp32_ops": ops,
-                     "bytes_bound_ms": byts / HBM_BYTES_PER_S * 1e3,
-                     "ops_bound_ms": ops / FP32_FLOPS * 1e3}
-        out[name]["bound_ms"] = max(out[name]["bytes_bound_ms"], out[name]["ops_bound_ms"])
-        out[name]["bound_by"] = ("bytes" if out[name]["bytes_bound_ms"]
-                                 >= out[name]["ops_bound_ms"] else "operations")
+        out[name] = {"bytes": byts, "fp32_ops": ops, **bound_of(byts, ops)}
         out[name]["main_path_max_abs_err"] = max(e for e, _ in held_by[name])
         out[name]["main_path_bitwise_equal_buckets"] = sum(x for _, x in held_by[name])
     out["primal"]["kernel_ms"] = event_ms(lambda: kdp.primal_call(whole2, lam, gamma), 30)
     out["primal"]["host_enqueue_ms"] = host_ms(lambda: kdp.primal_call(whole2, lam, gamma))
     out["primal"]["plain_ms"] = event_ms(over_buckets(lambda i: plain2(inst.buckets[i])), 5)
-    out["simplex"]["kernel_ms"] = event_ms(
-        over_buckets(lambda i: ksp.simplex_proj(vs[i], inst.buckets[i].mask)), 30)
-    out["simplex"]["plain_ms"] = event_ms(
-        over_buckets(lambda i: kref.simplex_ref(vs[i], inst.buckets[i].mask)), 5)
+    call3 = lambda: ksp.simplex_call(whole3, vs, masks)
+    out["simplex"].update(
+        kernel_ms=event_ms(call3, 30), device_ms=device_ms(call3, 20, SIMPLEX_KERNELS),
+        host_enqueue_ms=host_ms(call3),
+        fused_project_simplex_call_ms=event_ms(lambda: kops.fused_project_simplex_call(
+            vs, masks, plan=whole3), 30),
+        plain_ms=event_ms(over_buckets(lambda i: kref.simplex_ref(vs[i], masks[i])), 5))
+    # the same call in bf16: half the bytes; the same time would mean the
+    # kernel is bound by its instructions, not by HBM
+    vs16 = [v.bfloat16() for v in vs]
+    masks16 = [mk.bfloat16() for mk in masks]
+    whole16 = ksp.plan_simplex([tuple(v.shape) for v in vs], torch.bfloat16, vs[0].device)
+    ws16 = ksp.simplex_call(whole16, vs16, masks16)
+    held16 = [held(w, kref.simplex_ref(v, mk), X_ATOL["bfloat16"])
+              for w, v, mk in zip(ws16, vs16, masks16)]
+    if not all(exact for _, exact in held16):
+        fail("simplex kernel's bf16 x differs from the plain version's on the main path")
+    byts16 = sum(bytes3(b, 2) for b in inst.buckets)
+    call16 = lambda: ksp.simplex_call(whole16, vs16, masks16)
+    out["simplex_bf16"] = {
+        "bytes": byts16, "fp32_ops": out["simplex"]["fp32_ops"],
+        **bound_of(byts16, out["simplex"]["fp32_ops"]),
+        "main_path_max_abs_err": max(e for e, _ in held16),
+        "main_path_bitwise_equal_buckets": sum(x for _, x in held16),
+        "kernel_ms": event_ms(call16, 30), "device_ms": device_ms(call16, 20, SIMPLEX_KERNELS),
+        "plain_ms": event_ms(over_buckets(lambda i: kref.simplex_ref(vs16[i], masks16[i])), 5),
+    }
     emit(out)
     return out
+
+
+def bound_of(byts: int, ops: int) -> dict:
+    """The least time of a function that moves `byts` HBM bytes and does
+    `ops` fp32 operations, and which of the two bounds it."""
+    b_ms, o_ms = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return {"bytes_bound_ms": b_ms, "ops_bound_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
 def profile_iterations(calculate, lam, gamma: float, tag: str, iters: int = 20) -> dict:

@@ -15,8 +15,10 @@ every bucket of width <= 32 emits the primal slabs, A x and (c'x, ||x||^2)
 from a single slab read, and a finalize launch sums them.
 `fused_kernel=True` routes only the primal step through the fused primal
 kernel (`kernels.ops.fused_dual_primal_call`, one launch); A x and the
-objective terms stay on the plain path.  Both kernels' plans are built once
-per objective (`kernel_plan`).
+objective terms stay on the plain path.  The projection
+`UnitSimplexProjection(use_kernel=True)` projects every bucket's candidate
+in one simplex-kernel call (`kernels.ops.fused_project_simplex_call`, one
+launch).  The kernels' plans are built once per objective (`kernel_plan`).
 
 The formulation layer of the reference (a `FormulationSpec` on the instance,
 non-unit term scales) is not part of this port yet; `repro_torch.convert`
@@ -195,19 +197,27 @@ class MatchingObjective:
             )
         lam2 = lam.reshape(inst.num_families, inst.num_destinations)
         ginv = inv_gamma(gamma)
-        return tuple(
-            self.projection(-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv, b.mask)
-            for b in self._buckets
-        )
+        buckets = self._buckets
+        vs = [-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv for b in buckets]
+        proj = self.projection
+        if isinstance(proj, UnitSimplexProjection) and proj.use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            return kops.fused_project_simplex_call(
+                vs, [b.mask for b in buckets], radius=proj.radius,
+                inequality=proj.inequality, plan=self.kernel_plan("simplex_proj"),
+            )
+        return tuple(proj(v, b.mask) for v, b in zip(vs, buckets))
 
     def kernel_plan(self, kernel: str):
-        """The plan of the fused kernel `kernel` ("dual_oracle" or
-        "dual_primal") over this objective's slabs, built once on the card
+        """The plan of the kernel `kernel` ("dual_oracle", "dual_primal" or
+        "simplex_proj") over this objective's slabs, built once on the card
         (`kernels.ops.plan_slab_kernel`); None on the CPU."""
         if kernel not in self._kernel_plans:
             from repro_torch.kernels import ops as kops
 
-            proj = self._simplex("dual oracle" if kernel == "dual_oracle" else "primal kernel")
+            proj = self._simplex({"dual_oracle": "dual oracle", "dual_primal": "primal kernel",
+                                  "simplex_proj": "simplex kernel"}[kernel])
             inst = self.instance
             self._kernel_plans[kernel] = kops.plan_slab_kernel(
                 kernel, inst.buckets, inst.num_destinations, radius=proj.radius,

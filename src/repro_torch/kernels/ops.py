@@ -1,14 +1,17 @@
 """Dispatch of the three kernels (port of `repro.kernels.ops`).
 
-  fused_dual_oracle_call  one-pass oracle, every bucket   dual_oracle.oracle_call
-  fused_dual_primal_call  the primal step, every bucket   dual_primal.primal_call
-  fused_dual_oracle       one-pass oracle, one bucket     dual_oracle.dual_oracle
-  fused_dual_primal       the primal step, one bucket     dual_primal.dual_primal
-  fused_project_simplex   simplex projection              simplex_proj.simplex_proj
+  fused_dual_oracle_call      one-pass oracle, every bucket   dual_oracle.oracle_call
+  fused_dual_primal_call      the primal step, every bucket   dual_primal.primal_call
+  fused_project_simplex_call  projection, every bucket        simplex_proj.simplex_call
+  fused_dual_oracle           one-pass oracle, one bucket     dual_oracle.dual_oracle
+  fused_dual_primal           the primal step, one bucket     dual_primal.dual_primal
+  fused_project_simplex       projection, one slab            simplex_proj.simplex_proj
 
 The whole-call entry points are what `MatchingObjective` calls: one kernel
 plan per objective (`plan_slab_kernel`, built once on the card), one oracle
-launch and one finalize per call on the main path.
+launch and one finalize per call on the main path, one launch of the
+primal step or of the projection per call on the other paths (one more per
+bucket wider than 32).
 
 Each routes by where the tensors live:
   * CPU tensors take the plain version (`ref.dual_oracle_ref`,
@@ -44,6 +47,7 @@ __all__ = [
     "fused_dual_primal",
     "fused_dual_primal_call",
     "fused_project_simplex",
+    "fused_project_simplex_call",
     "oracle_hist_partial_bytes",
     "oracle_slab_slot_bytes",
     "plan_slab_kernel",
@@ -104,22 +108,27 @@ def oracle_hist_partial_bytes(grid: int, num_families: int, num_destinations: in
 
 def plan_slab_kernel(kernel: str, buckets, num_destinations: int, *, radius: float = 1.0,
                      inequality: bool = True):
-    """The plan of `kernel` ("dual_oracle" or "dual_primal") over the buckets
-    of kernel widths, built once per objective on the card; None on the CPU
-    or when no bucket has a kernel width."""
+    """The plan of `kernel` ("dual_oracle", "dual_primal" or "simplex_proj")
+    over the buckets of kernel widths, built once per objective on the card;
+    None on the CPU or when no bucket has a kernel width.  The projection's
+    plan is for the unfused oracle's candidates: fp32 slabs of the buckets'
+    shapes (`MatchingObjective._buckets` widens narrow storage)."""
     if not _on_card(buckets[0].cost):
         return None
     slabs = [b for b in buckets if _kernel_width(b.cost.shape[-1])]
     if not slabs:
         return None
+    if kernel == "simplex_proj":
+        return ksp.plan_simplex([tuple(b.cost.shape) for b in slabs], torch.float32,
+                                slabs[0].cost.device, radius=radius, inequality=inequality)
     return kdo.plan_slabs(kernel, slabs, num_destinations, radius=radius,
                           inequality=inequality)
 
 
-def _routed(buckets) -> list[int]:
-    """The buckets the width rule sends to the plain versions, counted."""
+def _routed(widths) -> list[int]:
+    """Where the width rule sends a slab to its plain version, counted."""
     global width_routed
-    ids = [i for i, b in enumerate(buckets) if not _kernel_width(b.cost.shape[-1])]
+    ids = [i for i, L in enumerate(widths) if not _kernel_width(L)]
     width_routed += len(ids)
     return ids
 
@@ -140,7 +149,7 @@ def fused_dual_oracle_call(
     per wider bucket) and one finalize; on the CPU the plain whole call,
     bucket by bucket."""
     J = num_destinations
-    routed = _routed(buckets)
+    routed = _routed([b.cost.shape[-1] for b in buckets])
     if not _on_card(buckets[0].cost) or len(routed) == len(buckets):
         return kref.dual_oracle_call_ref(buckets, lam, gamma, J, radius,
                                          inequality=inequality)
@@ -175,7 +184,7 @@ def fused_dual_primal_call(
     for int8).  On the card one launch for all buckets of width <= 32 (one
     more per wider bucket); on the CPU each bucket's plain version."""
     J = num_destinations
-    routed = _routed(buckets)
+    routed = _routed([b.cost.shape[-1] for b in buckets])
     plain = lambda b: kref.dual_primal_ref(
         b.idx, b.coeff, b.cost, b.mask, lam, gamma, J, radius, inequality=inequality,
         coeff_scale=b.coeff_scale, cost_scale=b.cost_scale)
@@ -239,6 +248,33 @@ def fused_dual_primal(
     if not _use_kernel(cost):
         return kref.dual_primal_ref(*args, num_destinations, **kw)
     return kdp.dual_primal(*args, num_destinations=num_destinations, **kw)
+
+
+def fused_project_simplex_call(
+    vs,  # [n, L] slabs, fp32 / bf16, one dtype and device
+    masks,  # [n, L] each, the slabs' dtype
+    *,
+    radius: float = 1.0,
+    inequality: bool = True,
+    plan=None,  # plan_slab_kernel("simplex_proj", ...), built here if None
+) -> tuple[torch.Tensor, ...]:
+    """The projection of every slab of one call, each in its dtype.  On the
+    card one launch for all slabs of width <= 32 (one more per wider slab);
+    on the CPU each slab's plain version."""
+    routed = _routed([v.shape[-1] for v in vs])
+    plain = lambda i: kref.simplex_ref(vs[i], masks[i], radius, inequality=inequality)
+    if not _on_card(vs[0]) or len(routed) == len(vs):
+        return tuple(plain(i) for i in range(len(vs)))
+    kept = [i for i in range(len(vs)) if i not in routed]
+    if plan is None:
+        plan = ksp.plan_simplex([tuple(vs[i].shape) for i in kept], vs[0].dtype,
+                                vs[0].device, radius=radius, inequality=inequality)
+    if plan.radius != float(radius) or plan.inequality != bool(inequality):
+        raise ValueError("simplex_proj kernel: the plan is for another feasible set")
+    outs = list(ksp.simplex_call(plan, [vs[i] for i in kept], [masks[i] for i in kept]))
+    for i in routed:
+        outs.insert(i, plain(i))
+    return tuple(outs)
 
 
 def fused_project_simplex(

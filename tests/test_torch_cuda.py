@@ -11,7 +11,9 @@ Every test is marked `cuda` and skips (in a fixture, at run time) when
 Tolerances: x atol 3e-5 (fp32, int8) / 2e-2 (bf16) as tests/test_kernels.py;
 hist, c'x and ||x||^2 atol 3e-5 + rtol 1e-5 as tests/test_dual_oracle.py.
 The primal-step kernel calls the oracle's own __device__ functions, so its x
-is held bitwise equal to the oracle's.  The oracle sums A x in int64 fixed
+is held bitwise equal to the oracle's; the simplex kernel's x is held bitwise
+equal to its plain version's in each row form, whole call or one slab, under
+any grid.  The oracle sums A x in int64 fixed
 point, exactly, so its A x is held bitwise equal to `ref.fixed_point_hist`
 and the same under any grid.
 No JAX here: the machine with the card need not have it.
@@ -266,16 +268,14 @@ def test_primal_and_simplex_kernels_refuse_what_they_cannot_take(cuda):
 
 
 def _small_solve(device, **objective_kw):
-    """The solve, and the kernel launches per call of its fused primal plan
-    (one, plus one per bucket wider than 32) or, without one, its buckets."""
+    """The solve, and the kernel launches per call of its plan: one, plus
+    one per bucket wider than 32."""
     spec = MatchingInstanceSpec(num_sources=3000, num_destinations=60,
                                 avg_degree=6.0, num_families=2, seed=4)
     packed = bucketize(generate_matching_instance(spec), device=device)
     obj = MatchingObjective(packed, **objective_kw)
     res = Maximizer(obj, MaximizerConfig(iters_per_stage=20)).solve()
-    if objective_kw.get("fused_kernel"):
-        return res, 1 + sum(b.length > 32 for b in packed.buckets)
-    return res, len(packed.buckets)
+    return res, 1 + sum(b.length > 32 for b in packed.buckets)
 
 
 def _rel_lam(a, b):
@@ -286,8 +286,8 @@ def _rel_lam(a, b):
 def test_fused_kernel_solve_launches_kernel_and_matches_cpu(cuda):
     kdp.launches = 0
     kops.width_routed = 0
-    on_card, buckets = _small_solve(cuda, fused_kernel=True)
-    assert kdp.launches == buckets * (MaximizerConfig(iters_per_stage=20).total_iters + 1)
+    on_card, per_call = _small_solve(cuda, fused_kernel=True)
+    assert kdp.launches == per_call * (MaximizerConfig(iters_per_stage=20).total_iters + 1)
     assert kops.width_routed == 0
     on_cpu, _ = _small_solve("cpu", fused_kernel=True)
     assert _rel_lam(on_card, on_cpu) <= 1e-6
@@ -296,7 +296,87 @@ def test_fused_kernel_solve_launches_kernel_and_matches_cpu(cuda):
 def test_simplex_kernel_solve_launches_kernel_and_matches_cpu(cuda):
     ksp.launches = 0
     proj = UnitSimplexProjection(use_kernel=True)
-    on_card, buckets = _small_solve(cuda, projection=proj)
-    assert ksp.launches == buckets * (MaximizerConfig(iters_per_stage=20).total_iters + 1)
+    on_card, per_call = _small_solve(cuda, projection=proj)
+    assert ksp.launches == per_call * (MaximizerConfig(iters_per_stage=20).total_iters + 1)
     on_cpu, _ = _small_solve("cpu", projection=proj)
     assert _rel_lam(on_card, on_cpu) <= 1e-6
+
+
+def _candidates(seed, widths, n, dtype, device):
+    """Random candidate slabs (scale 2, padded rows) and {0, 1} masks."""
+    rng = np.random.default_rng(seed)
+    vs, masks = [], []
+    for L in widths:
+        rows = n if L <= 64 else 9
+        v = torch.from_numpy((rng.normal(size=(rows, L)) * 2).astype(np.float32))
+        mask = torch.from_numpy((rng.random((rows, L)) < 0.7).astype(np.float32))
+        mask[:3] = 0.0
+        vs.append(v.to(device, dtype))
+        masks.append(mask.to(device, dtype))
+    return vs, masks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inequality", [True, False])
+def test_simplex_whole_call_is_one_launch_and_bitwise_plain(cuda, dtype, inequality):
+    """Six buckets of widths 1..32, both row forms, in one launch."""
+    vs, masks = _candidates(21, (1, 2, 4, 8, 16, 32), 3000, dtype, cuda)
+    for radius in (1.0, 2.5):
+        before = ksp.launches
+        got = kops.fused_project_simplex_call(vs, masks, radius=radius, inequality=inequality)
+        assert ksp.launches - before == 1
+        for g, v, m in zip(got, vs, masks):
+            assert g.dtype == dtype
+            assert torch.equal(g, kref.simplex_ref(v, m, radius, inequality=inequality))
+            assert float(g[:3].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_simplex_one_slab_and_whole_call_are_equal(cuda, dtype):
+    vs, masks = _candidates(22, (4, 16, 32, 64, 1024), 2000, dtype, cuda)
+    plan = ksp.plan_simplex([tuple(v.shape) for v in vs], dtype, cuda)
+    assert [p.wide for p in plan.launches] == [False, True, True]
+    whole = ksp.simplex_call(plan, vs, masks)
+    for w, v, m in zip(whole, vs, masks):
+        assert torch.equal(w, ksp.simplex_proj(v, m))
+
+
+def test_simplex_result_is_the_same_under_any_grid(cuda):
+    vs, masks = _candidates(23, (2, 8, 16, 32), 20_000, torch.float32, cuda)
+    shapes = [tuple(v.shape) for v in vs]
+    plans = [ksp.plan_simplex(shapes, torch.float32, cuda, grid=g) for g in (None, 7, 1)]
+    assert len({p.launches[0].grid for p in plans}) == 3
+    outs = [ksp.simplex_call(p, vs, masks) for p in plans]
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("inequality", [True, False])
+def test_simplex_row_forms_are_bitwise_plain(cuda, dtype, L, inequality):
+    """Rows in registers (L <= REGISTER_MAX_WIDTH) and warp segments, at
+    both radii, rows of 1 to 3000 (a partial last warp task)."""
+    for n in (1, 37, 3000):
+        vs, masks = _candidates(L + n, (L,), n, dtype, cuda)
+        for radius in (1.0, 2.5):
+            got = ksp.simplex_proj(vs[0], masks[0], radius, inequality=inequality)
+            want = kref.simplex_ref(vs[0], masks[0], radius, inequality=inequality)
+            assert torch.equal(got, want), (n, radius)
+
+
+def test_simplex_call_refuses_what_the_plan_does_not_take(cuda):
+    vs, masks = _candidates(24, (8, 16), 100, torch.float32, cuda)
+    plan = ksp.plan_simplex([tuple(v.shape) for v in vs], torch.float32, cuda)
+    with pytest.raises(ValueError, match="slabs"):
+        ksp.simplex_call(plan, vs[:1], masks[:1])
+    with pytest.raises(ValueError, match=r"\[100, 8\]"):
+        ksp.simplex_call(plan, [vs[0][:50], vs[1]], [masks[0][:50], masks[1]])
+    with pytest.raises(ValueError, match="dtype"):
+        ksp.simplex_call(plan, [vs[0].bfloat16(), vs[1]], [masks[0].bfloat16(), masks[1]])
+    flat = torch.zeros(100 * 8 + 1, device=cuda)
+    shifted = flat[1:].view(100, 8)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        ksp.simplex_call(plan, [shifted, vs[1]], [masks[0], masks[1]])
+    with pytest.raises(ValueError, match="feasible set"):
+        kops.fused_project_simplex_call(vs, masks, radius=2.0, plan=plan)
