@@ -37,6 +37,16 @@ Phases, each printing one line before the last:
      solve with the plain projection;
      two_ranks: a small sharded solve in two processes sharing the card
      over gloo, against one process;
+     pdhg_path: the fused PDHG solve of the main path's size through
+     `python -m repro_torch.launch.solve --engine pdhg --fused-oracle`
+     (600 iterations, adaptive restart, checks every 50), one oracle launch
+     and one finalize per iteration, against the unfused PDHG solve on the
+     card (primal objectives within rtol 1e-3), and a profiled window;
+     pdhg_step: one whole-call fused PDHG prox step at the main path's
+     instance, x+ bitwise the plain whole call on the same cost_eff, A x+
+     bitwise the fixed-point plain sum, cost_eff bitwise the CPU's, timed;
+     formulation_path: the capacity-cap formulation at the main path's
+     instance through the AGD engine and the unfused oracle (no kernel);
   5. times: each kernel's output at the main path's shapes held against
      its plain version; each kernel, its plain version and its HBM bound
      there, per bucket and per whole call, by CUDA events (the simplex
@@ -44,13 +54,15 @@ Phases, each printing one line before the last:
      world size 1; and the device's busy share over a profiled window of
      AGD iterations (torch.profiler).
 Every path is driven with all launch counters set to 0 just before it and
-read just after.  The line before the last is the JSON list of kernels; the
+read just after; kernel 1's entry in the kernels line gives its launches on
+each path it runs (`launches_by_path`).  The line before the last is the JSON list of kernels; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero without it.  Imports torch, numpy and the port; nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -679,7 +691,7 @@ def phase_path2(main) -> dict:
     from repro_torch.core import (
         DistConfig, DistributedMaximizer, Maximizer, MatchingObjective,
     )
-    from repro_torch.core.sharding import _make_calculate
+    from repro_torch.core.sharding import _make_calculate, gather_rows
     from repro_torch.launch import dist as launch_dist
 
     r = main["run"]
@@ -694,7 +706,7 @@ def phase_path2(main) -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     counts = read_counts()
-    value = matched_value(r, dm.gather_primal(res.x_slabs))
+    value = matched_value(r, gather_rows(res.x_slabs))
     allreduce_ms = allreduce_time(inst.dual_dim + 2)
     single = Maximizer(MatchingObjective(inst, fused_kernel=True), cfg).solve()
     profiled = profile_iterations(
@@ -856,6 +868,321 @@ def phase_two_ranks() -> dict:
         fail(f"two ranks against one process: rel lam {out['rel_lam_vs_one']} > 1e-5")
     if not two["counts"]["dual_primal"] > 0:
         fail("the two-rank solve did not launch the primal kernel")
+    return out
+
+
+PDHG_ARGS = ["--engine", "pdhg", "--iters-per-stage", "100"]
+
+
+def phase_pdhg_path(sources: int) -> dict:
+    """The fused PDHG solve through the CLI at the main path's size (the
+    CLI's own check cadence, MaximizerConfig's 25): counted (one oracle
+    launch and one finalize per iteration), its residuals, and against the
+    unfused PDHG solve of the same instance on the card over the same
+    budget; then the solve taken apart and timed piece by piece
+    (`pdhg_time_split`), a profiled window of 20 fused iterations and one of
+    a whole check (its iterations and its residuals)."""
+    import torch
+
+    from repro_torch.core import DistConfig, MatchingObjective
+    from repro_torch.engines.pdhg import PDHGCore, PDHGEngineConfig, solve_pdhg_sharded
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import solve
+
+    args = solve.build_parser().parse_args([
+        "--sources", str(sources), "--destinations", "10000", "--avg-degree", "8",
+        "--families", "1", "--slab-dtype", "float32", "--fused-oracle", "--device", "cuda",
+        *PDHG_ARGS])
+    reset_counts()
+    r = solve.run(args)
+    counts = read_counts()
+    inst, res, cfg = r.instance, r.result, r.config
+    obj = MatchingObjective(inst)
+    step = kops.plan_pdhg_step(obj._buckets, [b.cost for b in inst.buckets],
+                               num_destinations=inst.num_destinations)
+    iters = r.total_iters
+    expect = step.launches_per_call * iters
+
+    def residuals(result):
+        core = PDHGCore(obj, result.lam, cfg, PDHGEngineConfig(), fused_oracle=False,
+                        sigma_sq=result.sigma_sq)
+        x = tuple(result.x_slabs)
+        pobj, dobj, pr, dr, gap = core.residuals(x, result.lam, obj.apply_A(x))
+        return {"primal_obj": float(pobj), "dual_obj": float(dobj), "rel_primal": float(pr),
+                "rel_dual": float(dr), "rel_gap": float(gap)}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    unfused = solve_pdhg_sharded(inst, cfg, DistConfig(fused_oracle=False))
+    torch.cuda.synchronize()
+    unfused_s = time.perf_counter() - t0
+    unfused_counts = read_counts()
+    fused_res, unfused_res = residuals(res), residuals(unfused)
+    out = {
+        "phase": "pdhg_path", "sources": sources, "nnz": r.edges.nnz,
+        "iterations": iters, "check_every": cfg.check_every, "restart": "adaptive",
+        "setup_s": r.setup_s, "solve_s": r.solve_s, "ms_per_iter": r.solve_s / iters * 1e3,
+        "restarts": res.restarts, "tau": res.steps[0], "sigma_sq": float(res.sigma_sq),
+        "final": fused_res, "value": r.value,
+        "launch_counts": counts, "expected_oracle_launches": expect,
+        "launches_per_iteration": step.launches_per_call,
+        "fixed_point_shift": step.plan.shift,
+        "unfused": {"ms_per_iter": unfused_s / unfused.iters_used[0] * 1e3,
+                    "iterations": unfused.iters_used[0], "restarts": unfused.restarts,
+                    "final": unfused_res, "launch_counts": unfused_counts},
+        "rel_l2_y_fused_vs_unfused": rel_l2(res.lam, unfused.lam),
+        "rel_primal_obj_fused_vs_unfused": rel_diff(fused_res["primal_obj"],
+                                                    unfused_res["primal_obj"]),
+    }
+    emit(out)
+    core = PDHGCore(obj, res.lam, cfg, PDHGEngineConfig(), fused_oracle=True,
+                    sigma_sq=res.sigma_sq)
+    state = core.initial_state()
+
+    def window():
+        s = state
+        for _ in range(20):
+            s = core.one_iter(s)
+        return s
+
+    emit(profile_window(window, "pdhg", 20))
+    split = pdhg_time_split(inst, cfg, r.solve_s)
+    emit(split)
+    if split["iterations"] != iters:
+        fail(f"the timed split ran {split['iterations']} iterations, the CLI {iters}")
+    if (counts["dual_oracle"] != expect or counts["dual_oracle_finalize"] != iters
+            or counts["dual_primal"] or counts["simplex_proj"] or counts["width_routed"]):
+        fail(f"pdhg path launches {counts}: expected {expect} oracle launches and {iters} "
+             f"finalizes, one each per iteration")
+    if any(unfused_counts.values()):
+        fail(f"the unfused PDHG solve launched a kernel: {unfused_counts}")
+    if iters != 600 or unfused.iters_used[0] != 600:
+        fail(f"pdhg path ran {iters} and {unfused.iters_used[0]} iterations, not 600")
+    finite = [*fused_res.values(), *unfused_res.values(), r.value, float(res.g)]
+    if not all(math.isfinite(v) for v in finite):
+        fail(f"non-finite pdhg result {out}")
+    if not out["rel_primal_obj_fused_vs_unfused"] <= 1e-3:
+        fail(f"fused vs unfused PDHG primal objectives beyond rtol 1e-3: {out}")
+    return {"run": r, "step": step, "summary": out}
+
+
+def pdhg_time_split(inst, cfg, cli_solve_s: float) -> dict:
+    """The CLI's fused PDHG solve (`solve_pdhg_sharded` at world size 1)
+    taken apart, each piece timed alone by the host clock between device
+    syncs: the shard copy, the power iteration, the engine's set-up
+    (`PDHGCore`: the cost_eff buffers, the oracle plan over them, tau and
+    sigma read once), the initial candidate, the iterations alone
+    (`one_iter`, no residuals) and the same iterations with their checks
+    (`_check`, as `run` drives them; no stop vote, as the CLI sets no
+    tolerance).  The checks' cost is the difference of the last two.  Each
+    loop is run twice, in turns, and the lesser time kept; then one
+    profiled window over a whole check, and the whole solve once more
+    checking every 50 iterations (called directly: not the CLI's path)."""
+    import torch
+
+    from repro_torch.core import DistConfig, MatchingObjective
+    from repro_torch.core.projections import UnitSimplexProjection
+    from repro_torch.core.sharding import shard_instance
+    from repro_torch.engines.pdhg import PDHGCore, PDHGEngineConfig, solve_pdhg_sharded
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        return v, (time.perf_counter() - t0) * 1e3
+
+    local, shard_ms = clock(lambda: shard_instance(inst, 0, 1))
+    obj = MatchingObjective(local, projection=UnitSimplexProjection(), include_rhs=False)
+    sigma_sq, power_ms = clock(lambda: obj.power_iteration(cfg.seed, iters=cfg.power_iters))
+    lam0 = torch.zeros(inst.dual_dim, dtype=torch.float32, device=local.device)
+    core, core_ms = clock(lambda: PDHGCore(obj, lam0, cfg, PDHGEngineConfig(),
+                                           fused_oracle=True, sigma_sq=sigma_sq))
+    state, init_ms = clock(core.initial_state)
+    total = int(cfg.total_iter_budget)
+    n_checks = -(-total // core.inner)
+
+    def steps():
+        s = state
+        for _ in range(n_checks * core.inner):
+            s = core.one_iter(s)
+        return s
+
+    def checks():
+        s = state
+        for _ in range(n_checks):
+            s, _ = core._check(s)
+        return s
+
+    steps_ms, loop_ms = [], []
+    for _ in range(2):
+        steps_ms.append(clock(steps)[1])
+        loop_ms.append(clock(checks)[1])
+    step_ms, whole_ms = min(steps_ms), min(loop_ms)
+    check_ms = whole_ms - step_ms
+    setup_ms = shard_ms + power_ms + core_ms + init_ms
+    parts = setup_ms + whole_ms
+    window = profile_window(lambda: core._check(state), "pdhg_check", core.inner)
+    # the same solve checking every 50 iterations, the reference's test
+    # cadence: not the CLI's path (its CLI fixes MaximizerConfig's 25)
+    cfg50 = dataclasses.replace(cfg, check_every=50)
+    res50, ms50 = clock(lambda: solve_pdhg_sharded(inst, cfg50, DistConfig(fused_oracle=True)))
+    return {
+        "phase": "pdhg_split", "iterations": n_checks * core.inner, "checks": n_checks,
+        "check_every": core.inner, "shard_ms": shard_ms, "power_iteration_ms": power_ms,
+        "core_setup_ms": core_ms, "initial_state_ms": init_ms, "setup_ms": setup_ms,
+        "steps_ms_readings": steps_ms, "steps_and_checks_ms_readings": loop_ms,
+        "steps_ms_per_iter": step_ms / (n_checks * core.inner),
+        "checks_ms": check_ms, "ms_per_check": check_ms / n_checks,
+        "parts_ms": parts, "cli_solve_ms": cli_solve_s * 1e3,
+        "share_of_parts": {"setup": setup_ms / parts, "steps": step_ms / parts,
+                           "checks": check_ms / parts},
+        "check_window": window,
+        "not_cli_check_every_50": {"ms_per_iter": ms50 / res50.iters_used[0],
+                                   "iterations": res50.iters_used[0],
+                                   "restarts": res50.restarts},
+    }
+
+
+def phase_pdhg_step(pdhg) -> dict:
+    """One whole-call fused PDHG prox step at the main path's instance, from
+    the PDHG solve's final x and random y: x+, A x+ and cost_eff held
+    bitwise; the step's and the cost_eff write's device times by the
+    profiler, its launches per step, its plain version by CUDA events."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dual_oracle as kdo
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    r, step = pdhg["run"], pdhg["step"]
+    inst = r.instance
+    J, m = inst.num_destinations, inst.num_families
+    xs = tuple(r.result.x_slabs)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    y = torch.rand(inst.dual_dim, generator=gen).to(xs[0].device)
+    tau = r.result.steps[0]
+    inv_tau = float(np.float32(1.0) / np.float32(tau))
+    before = (kdo.launches, kdo.finalize_launches)
+    got_xs, got_ax = kops.fused_pdhg_step_call(step, xs, y, tau)
+    per_step = (kdo.launches - before[0], kdo.finalize_launches - before[1])
+    torch.cuda.synchronize()
+    cost_eff_equal = sum(bool(torch.equal(s.cost.cpu(), torch.sub(c.cpu(), torch.mul(
+        x.cpu(), inv_tau)))) for c, x, s in zip(step.costs, xs, step.slabs))
+    want_xs, want_ax, _, _ = kref.dual_oracle_call_ref(step.slabs, y, inv_tau, J)
+    x_held = [held(a, w, X_ATOL["float32"]) for a, w in zip(got_xs, want_xs)]
+    fixed = kref.fixed_point_hist(step.slabs, y, inv_tau, J, step.plan.shift)
+    ax_exact = bool(torch.equal(got_ax, fixed))
+    ax_err = float((got_ax - want_ax).abs().max())
+
+    def write():
+        step.write_cost_eff(xs, inv_tau)
+
+    def plain():
+        costs = [torch.sub(c, torch.mul(x, inv_tau)) for c, x in zip(step.costs, xs)]
+        slabs = [kdo.Slab(s.idx, s.coeff, c, s.mask) for s, c in zip(step.slabs, costs)]
+        return kref.dual_oracle_call_ref(slabs, y, inv_tau, J)
+
+    call = lambda: kops.fused_pdhg_step_call(step, xs, y, tau)  # noqa: E731
+    slots = sum(b.idx.numel() for b in inst.buckets)
+    # idx, m coeff, c, mask and x read, x+ written per slot; y read, A x written
+    byts = slots * (4 * (m + 4) + 4) + 4 * m * J * 2
+    ops = sum(slab_ops(b, m) for b in inst.buckets) + 2 * slots
+    step_ms, step_kernels = device_events(call, 20)
+    out = {
+        "phase": "pdhg_step", "slots": slots, "tau": tau, "inv_tau": inv_tau,
+        "oracle_launches_per_step": per_step[0], "finalize_launches_per_step": per_step[1],
+        "cost_eff_launches_per_step": 2 * len(step.slabs),
+        "device_kernels_per_step": step_kernels,
+        "x_bitwise_equal_buckets": sum(ex for _, ex in x_held),
+        "x_max_abs_err": max(e for e, _ in x_held), "buckets": len(step.slabs),
+        "ax_bitwise_fixed_point": ax_exact, "ax_max_abs_err_vs_fp32_plain": ax_err,
+        "cost_eff_bitwise_cpu_buckets": cost_eff_equal,
+        "kernel_ms": event_ms(call, 30), "device_ms": step_ms,
+        "oracle_device_ms": device_ms(call, 20, r"oracle_(narrow|wide|finalize)"),
+        "cost_eff_write_ms": event_ms(write, 30), "cost_eff_write_device_ms":
+            device_events(write, 20)[0],
+        "host_enqueue_ms": host_ms(call),
+        "plain_ms": event_ms(plain, 5),
+        "bytes": byts, "fp32_ops": ops, **bound_of(byts, ops),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the prox step",
+    }
+    emit(out)
+    if per_step != (step.launches_per_call, 1) or step.launches_per_call != 1:
+        fail(f"pdhg step launched {per_step} (oracle, finalize), expected (1, 1)")
+    if out["x_bitwise_equal_buckets"] != len(step.slabs) or not ax_exact:
+        fail(f"pdhg step against its plain version: {out}")
+    if cost_eff_equal != len(step.slabs):
+        fail(f"cost_eff on the card differs from the CPU's in "
+             f"{len(step.slabs) - cost_eff_equal} buckets")
+    return out
+
+
+def device_events(fn, reps: int) -> tuple:
+    """Device ms per call of `fn` over all its device events and the number
+    of device events per call, from a torch.profiler trace of `reps` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that lost the window's device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
+                and e.self_device_time_total > 0]
+        if rows:
+            return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+                    sum(e.count for e in rows) / reps)
+    return "not measured", "not measured"
+
+
+def phase_formulation_path(main) -> dict:
+    """The capacity-cap formulation compiled at the main path's instance and
+    solved through the AGD engine with the unfused oracle: no kernel runs
+    (the box-cut projection is plain PyTorch); its time, g, matched value
+    and violation, and the cap held."""
+    import torch
+
+    from repro_torch.engines import resolve_engine
+    from repro_torch.formulation import scenario_formulation
+
+    r = main["run"]
+    comp = scenario_formulation("capacity-cap").compile(r.instance)
+    cfg = r.config
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    raw = resolve_engine("agd").raw_solve(
+        comp.instance, torch.zeros(comp.instance.dual_dim, device="cuda"), cfg,
+        normalize=False)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    iters = int(raw.iters.sum())
+    cap = comp.formulation.feasible_tuple[0].cap
+    x_max = max(float(x.max()) for x in raw.x_slabs)
+    out = {
+        "phase": "formulation_path", "formulation": comp.spec.name, "cap": cap,
+        "engine": "agd", "oracle": "unfused", "iterations": iters,
+        "ms_per_iter": solve_s / iters * 1e3, "g": float(raw.g),
+        "value": matched_value(r, raw.x_slabs),
+        "max_violation": float(raw.stats[-1].max_violation[-1]), "x_max": x_max,
+        "launch_counts": counts,
+    }
+    emit(out)
+    if any(counts.values()):
+        fail(f"the formulation path launched a kernel: {counts}")
+    if not all(math.isfinite(out[k]) for k in ("g", "value", "max_violation")):
+        fail(f"non-finite formulation result {out}")
+    if not x_max <= cap + 1e-5:
+        fail(f"capacity cap {cap} broken: max x {x_max}")
     return out
 
 
@@ -1141,8 +1468,21 @@ def bound_of(byts: int, ops: int) -> dict:
 
 
 def profile_iterations(calculate, lam, gamma: float, tag: str, iters: int = 20) -> dict:
-    """Device busy share of a window of AGD iterations of `calculate` at
-    duals `lam`, from a torch.profiler trace: the summed time of the device's
+    """`profile_window` over `iters` AGD iterations of `calculate` at duals
+    `lam`."""
+    import torch
+
+    from repro_torch.core.maximizer import _stage_scan
+
+    eta = torch.full((), 1e-3, device=lam.device)
+    return profile_window(lambda: _stage_scan(calculate, lam, gamma, eta, iters,
+                                              acceleration=True, adaptive_restart=True),
+                          tag, iters)
+
+
+def profile_window(step, tag: str, iters: int) -> dict:
+    """Device busy share of a window of `iters` iterations (one call of
+    `step`), from a torch.profiler trace: the summed time of the device's
     own events (kernels, copies, fills) over the host-clocked wall time of
     the window, each kernel of the port per iteration (one instantiation per
     bucket width: the bucket's device time, free of the host's launch
@@ -1153,11 +1493,6 @@ def profile_iterations(calculate, lam, gamma: float, tag: str, iters: int = 20) 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.maximizer import _stage_scan
-
-    eta = torch.full((), 1e-3, device=lam.device)
-    step = lambda: _stage_scan(calculate, lam, gamma, eta, iters,
-                               acceleration=True, adaptive_restart=True)
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1233,6 +1568,9 @@ def main() -> int:
     path2 = timed(phase_path2, main_path)
     path3 = timed(phase_path3, main_path)
     timed(phase_two_ranks)
+    pdhg = timed(phase_pdhg_path, args.sources)
+    pdhg_step = timed(phase_pdhg_step, pdhg)
+    timed(phase_formulation_path, main_path)
     times = timed(phase_times, main_path)
     times23 = timed(phase_times_primal_simplex, main_path)
 
@@ -1240,21 +1578,30 @@ def main() -> int:
         return max(v if isinstance(v, float) else max(v.values())
                    for v in sw["worst_abs_err"].values())
 
-    def entry(name, replaces, launches, err, t, source=None):
+    def entry(name, replaces, launches, err, t, source=None, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None}
+                "library_ms": None, **extra}
 
+    main_counts = main_path["summary"]["launch_counts"]
+    pdhg_counts = pdhg["summary"]["launch_counts"]
     emit({"kernels": [
         entry("dual_oracle", "src/repro/kernels/dual_oracle.py:87",
               main_path["summary"]["kernel_launches"],
-              max(worst(sweep), times["call"]["main_path_x_max_abs_err"]), times["call"]),
+              max(worst(sweep), times["call"]["main_path_x_max_abs_err"],
+                  pdhg_step["x_max_abs_err"]), times["call"],
+              launches_by_path={"main": main_counts["dual_oracle"],
+                                "pdhg": pdhg_counts["dual_oracle"]},
+              pdhg_step={k: pdhg_step[k] for k in ("kernel_ms", "device_ms", "plain_ms",
+                                                   "bound_ms", "bound_by")}),
         entry("dual_oracle_finalize", "src/repro/kernels/ops.py:317",
-              main_path["summary"]["launch_counts"]["dual_oracle_finalize"],
-              times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle"),
+              main_counts["dual_oracle_finalize"],
+              times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle",
+              launches_by_path={"main": main_counts["dual_oracle_finalize"],
+                                "pdhg": pdhg_counts["dual_oracle_finalize"]}),
         entry("dual_primal", "src/repro/kernels/dual_primal.py:100",
               path2["launch_counts"]["dual_primal"],
               max(worst(sweep2), times23["primal"]["main_path_max_abs_err"]),

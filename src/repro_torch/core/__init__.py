@@ -13,6 +13,7 @@ from repro_torch.core.objective import (
     MatchingObjective,
     binned_segment_sum,
     normalize_rows,
+    normalize_rows_traced,
     start_vector,
 )
 from repro_torch.core.projections import (
@@ -23,6 +24,7 @@ from repro_torch.core.projections import (
     project_box,
     project_box_cut,
     project_simplex,
+    project_simplex_cmp,
 )
 from repro_torch.core.sharding import (
     DistConfig,
@@ -41,6 +43,7 @@ __all__ = [
     "MatchingObjective",
     "binned_segment_sum",
     "normalize_rows",
+    "normalize_rows_traced",
     "start_vector",
     "DistConfig",
     "DistributedMaximizer",
@@ -50,6 +53,7 @@ __all__ = [
     "BoxProjection",
     "BoxCutProjection",
     "project_simplex",
+    "project_simplex_cmp",
     "project_box",
     "project_box_cut",
 ]

@@ -104,6 +104,9 @@ class SolveResult(NamedTuple):
     steps: tuple[float, ...]  # per-stage step sizes actually used
     # per-stage iterations executed; None when early stopping is disabled
     iters_used: Optional[tuple[int, ...]] = None
+    # explicit solver restarts taken (PDHG anchor/average restarts); None for
+    # engines that do not count them (AGD's in-loop momentum resets)
+    restarts: Optional[int] = None
 
     @property
     def total_iters_used(self) -> Optional[int]:

@@ -20,9 +20,15 @@ objective terms stay on the plain path.  The projection
 in one simplex-kernel call (`kernels.ops.fused_project_simplex_call`, one
 launch).  The kernels' plans are built once per objective (`kernel_plan`).
 
-The formulation layer of the reference (a `FormulationSpec` on the instance,
-non-unit term scales) is not part of this port yet; `repro_torch.convert`
-refuses an instance that carries one.  `gamma` is a Python float throughout,
+A compiled formulation (`repro_torch.formulation`) rides on the instance
+as its `formulation` field; `__post_init__` resolves it into per-bucket
+projections and the lowered term scales (`cost_scale`, `ridge_weight`), so
+the Maximizer, the sharded solve and the engines dispatch any composition
+of feasible sets, terms and couplings unchanged.  A spec-free instance with
+default scales is the matching formulation, bit for bit.  The fused paths
+take unit scales and the simplex set only (`_assert_fused_ok`).
+
+`gamma` is a Python float throughout,
 so no call here waits for the device, apart from the first A x of an
 objective, which sorts each bucket's bins once (`segment_plans`), and the
 first fused-oracle call on the card, which fixes its fixed-point scale.
@@ -30,7 +36,7 @@ first fused-oracle call on the card, which fixes its fixed-point scale.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +58,7 @@ __all__ = [
     "gather_at_lam",
     "inv_gamma",
     "normalize_rows",
+    "normalize_rows_traced",
     "segment_plan",
     "start_vector",
 ]
@@ -160,6 +167,13 @@ class MatchingObjective:
     # one-pass fused dual oracle: one kernel launch (and a finalize) per call
     # (subsumes fused_kernel)
     fused_oracle: bool = False
+    # lowered objective-term scales (repro_torch.formulation.terms):
+    #   g = cost_scale * c'x + ridge_weight * (gamma/2)||x||^2 + lam'(Ax - b)
+    #   x* = Pi_C( -(A^T lam + cost_scale * c) / (ridge_weight * gamma) )
+    # the scale branches below are host-level, so unit scales compute the
+    # matching objective's exact arithmetic
+    cost_scale: float = 1.0
+    ridge_weight: float = 1.0
     # per-bucket summation order of A x, built at first use
     _plans: tuple[SegmentPlan, ...] | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False
@@ -169,19 +183,70 @@ class MatchingObjective:
         default_factory=dict, init=False, repr=False, compare=False
     )
 
+    def __post_init__(self):
+        # Formulation shim: a compiled FormulationSpec on the instance carries
+        # the per-bucket feasible sets and term scales; resolve them here, so
+        # every caller that builds a MatchingObjective from the instance
+        # dispatches compiled formulations with no change.
+        self._projections: Optional[tuple[ProjectionMap, ...]] = None
+        spec = self.instance.formulation
+        if spec is not None:
+            from repro_torch.formulation.spec import lower_spec
+
+            lowered = lower_spec(spec, self.instance)
+            self.cost_scale = self.cost_scale * lowered.cost_scale
+            self.ridge_weight = self.ridge_weight * lowered.ridge_weight
+            # an explicitly passed non-default projection (the sharded solve's
+            # `projection=` argument) wins over the spec's lowering
+            if self.projection == UnitSimplexProjection():
+                self._projections = lowered.projections
+                if len(set(lowered.projections)) == 1:
+                    self.projection = lowered.projections[0]
+        # whether the fused kernels can take this objective, decided once:
+        # (the one simplex projection of every bucket, None) or (None, why)
+        self._fused = self._fused_simplex()
+
     @property
     def dual_dim(self) -> int:
         return self.instance.dual_dim
 
     @property
     def _buckets(self) -> tuple[Bucket, ...]:
-        """fp32 compute views of the buckets for the unfused paths."""
+        """fp32 compute views of the buckets for the unfused paths (fp32
+        storage returns the instance's own buckets)."""
         return tuple(dequantize_bucket(b) for b in self.instance.buckets)
 
-    def _simplex(self, kind: str) -> UnitSimplexProjection:
-        if not isinstance(self.projection, UnitSimplexProjection):
-            raise ValueError(f"the fused {kind} implements the simplex feasible set")
-        return self.projection
+    def _proj(self, i: int) -> ProjectionMap:
+        return self._projections[i] if self._projections else self.projection
+
+    def _scaled_cost(self, b: Bucket) -> torch.Tensor:
+        return b.cost if self.cost_scale == 1.0 else self.cost_scale * b.cost
+
+    def _scaled_gamma(self, gamma: float) -> float:
+        """ridge_weight * gamma, rounded to fp32 as the reference's product
+        of a Python scale and an fp32 gamma."""
+        if self.ridge_weight == 1.0:
+            return gamma
+        return float(np.float32(self.ridge_weight) * np.float32(gamma))
+
+    def _fused_simplex(self) -> tuple[Optional[UnitSimplexProjection], Optional[str]]:
+        if self.cost_scale != 1.0 or self.ridge_weight != 1.0:
+            return None, ("implements unit term scales; lower non-unit "
+                          "LinearCost/RidgeSmoothing through the unfused oracle")
+        projs = {self._proj(i) for i in range(len(self.instance.buckets))}
+        proj = next(iter(projs))
+        if len(projs) != 1 or not isinstance(proj, UnitSimplexProjection):
+            return None, "implements the simplex feasible set"
+        return proj, None
+
+    def _assert_fused_ok(self, kind: str) -> UnitSimplexProjection:
+        """The one simplex projection of every bucket, which the fused
+        kernels implement (decided at construction); raises on non-unit term
+        scales or any other feasible set (the reference asserts the same)."""
+        proj, why = self._fused
+        if proj is None:
+            raise ValueError(f"the {kind} {why}")
+        return proj
 
     def primal_candidate(self, lam: torch.Tensor, gamma: float) -> tuple[torch.Tensor, ...]:
         """x*_gamma(lam) per bucket (eq. 3)."""
@@ -189,25 +254,28 @@ class MatchingObjective:
         if self.fused_kernel:
             from repro_torch.kernels import ops as kops
 
-            proj = self._simplex("primal kernel")
+            proj = self._assert_fused_ok("fused primal kernel")
             return kops.fused_dual_primal_call(
                 inst.buckets, lam, gamma, num_destinations=inst.num_destinations,
                 radius=proj.radius, inequality=proj.inequality,
                 plan=self.kernel_plan("dual_primal"),
             )
         lam2 = lam.reshape(inst.num_families, inst.num_destinations)
-        ginv = inv_gamma(gamma)
+        ginv = inv_gamma(self._scaled_gamma(gamma))
         buckets = self._buckets
-        vs = [-(gather_at_lam(b.coeff, b.idx, lam2) + b.cost) * ginv for b in buckets]
-        proj = self.projection
-        if isinstance(proj, UnitSimplexProjection) and proj.use_kernel:
+        vs = [-(gather_at_lam(b.coeff, b.idx, lam2) + self._scaled_cost(b)) * ginv
+              for b in buckets]
+        projs = [self._proj(i) for i in range(len(buckets))]
+        proj = projs[0]
+        if (isinstance(proj, UnitSimplexProjection) and proj.use_kernel
+                and len(set(projs)) == 1):
             from repro_torch.kernels import ops as kops
 
             return kops.fused_project_simplex_call(
                 vs, [b.mask for b in buckets], radius=proj.radius,
                 inequality=proj.inequality, plan=self.kernel_plan("simplex_proj"),
             )
-        return tuple(proj(v, b.mask) for v, b in zip(vs, buckets))
+        return tuple(p(v, b.mask) for p, v, b in zip(projs, vs, buckets))
 
     def kernel_plan(self, kernel: str):
         """The plan of the kernel `kernel` ("dual_oracle", "dual_primal" or
@@ -216,8 +284,9 @@ class MatchingObjective:
         if kernel not in self._kernel_plans:
             from repro_torch.kernels import ops as kops
 
-            proj = self._simplex({"dual_oracle": "dual oracle", "dual_primal": "primal kernel",
-                                  "simplex_proj": "simplex kernel"}[kernel])
+            proj = self._assert_fused_ok({"dual_oracle": "fused dual oracle",
+                                          "dual_primal": "fused primal kernel",
+                                          "simplex_proj": "simplex kernel"}[kernel])
             inst = self.instance
             self._kernel_plans[kernel] = kops.plan_slab_kernel(
                 kernel, inst.buckets, inst.num_destinations, radius=proj.radius,
@@ -259,10 +328,16 @@ class MatchingObjective:
             return self._calculate_fused(lam, gamma)
         x_slabs = self.primal_candidate(lam, gamma)
         ax = self.apply_A(x_slabs)
-        buckets = self._buckets
-        lin = sum(_vdot(b.cost, _acc32(x)) for b, x in zip(buckets, x_slabs))
-        ridge = 0.5 * gamma * sum(_vdot(_acc32(x), _acc32(x)) for x in x_slabs)
+        lin, ridge = self._primal_terms(x_slabs, gamma)
         return self._finish_eval(lam, ax, lin, ridge, x_slabs)
+
+    def _primal_terms(self, x_slabs, gamma: float):
+        """(c'x, (gamma/2)||x||^2), each with its term scale."""
+        lin = sum(_vdot(self._scaled_cost(b), _acc32(x))
+                  for b, x in zip(self._buckets, x_slabs))
+        ridge = 0.5 * self._scaled_gamma(gamma) * sum(
+            _vdot(_acc32(x), _acc32(x)) for x in x_slabs)
+        return lin, ridge
 
     def _finish_eval(self, lam, ax, lin, ridge, x_slabs) -> DualEval:
         """Shared tail of both oracle paths: grad/g from the reduced pieces."""
@@ -278,7 +353,7 @@ class MatchingObjective:
         the objective scalars."""
         from repro_torch.kernels import ops as kops
 
-        proj = self._simplex("dual oracle")
+        proj = self._assert_fused_ok("fused dual oracle")
         inst = self.instance
         x_slabs, ax, lin, sq = kops.fused_dual_oracle_call(
             inst.buckets, lam, gamma, num_destinations=inst.num_destinations,
@@ -288,6 +363,11 @@ class MatchingObjective:
         return self._finish_eval(lam, ax, lin, 0.5 * gamma * sq, x_slabs)
 
     # -- diagnostics --------------------------------------------------------
+
+    def primal_objective(self, x_slabs: Sequence[torch.Tensor], gamma: float) -> torch.Tensor:
+        """c'x + (gamma/2)||x||^2 at `x_slabs`, with the term scales."""
+        lin, ridge = self._primal_terms(x_slabs, gamma)
+        return lin + ridge
 
     def max_violation(self, x_slabs: Sequence[torch.Tensor]) -> torch.Tensor:
         """max(0, Ax - b) infinity-norm — the paper's Table-4 'slack'."""
@@ -311,6 +391,39 @@ class MatchingObjective:
                 u = reduce(u)
             norm = torch.linalg.vector_norm(u)
         return norm  # ~ sigma_max^2
+
+
+def normalize_rows_traced(
+    inst: BucketedInstance, eps: float = 1e-30
+) -> tuple[BucketedInstance, torch.Tensor]:
+    """Jacobi row normalization on the instance's device (port of the
+    reference's traced form, which the engines run inside every solve).
+
+    Same math as `normalize_rows` (A' = D A, b' = D b, D_r = 1/||A_r||_2),
+    in torch ops: the row norms by one fixed-order segment sum per bucket,
+    the scaling by a gather.  bf16 coefficients are scaled in fp32 and cast
+    back; int8 slabs stay dequantized fp32 (requantizing would need
+    data-dependent scales).  The formulation rides along.  Returns the
+    scaled instance and D as a [m*J] tensor.
+    """
+    m, J = inst.num_families, inst.num_destinations
+    compute = tuple(dequantize_bucket(b) for b in inst.buckets)
+    norms_sq = torch.zeros((m, J), dtype=torch.float32, device=inst.device)
+    for b in compute:
+        norms_sq = norms_sq + binned_segment_sum(b.idx, (b.coeff ** 2) * b.mask[None], J)
+    norms = torch.sqrt(norms_sq)
+    d2 = torch.where(norms > eps, 1.0 / torch.clamp_min(norms, eps), 1.0)
+
+    def scaled_bucket(b: Bucket, cb: Bucket) -> Bucket:
+        coeff = cb.coeff * d2[:, b.idx.long()]
+        if b.coeff_scale is None:
+            return dataclasses.replace(b, coeff=coeff.to(b.coeff.dtype))
+        return dataclasses.replace(b, coeff=coeff, cost=cb.cost, mask=cb.mask,
+                                   coeff_scale=None, cost_scale=None)
+
+    buckets = tuple(scaled_bucket(b, cb) for b, cb in zip(inst.buckets, compute))
+    d = d2.reshape(-1)
+    return dataclasses.replace(inst, buckets=buckets, rhs=inst.rhs * d), d
 
 
 def normalize_rows(

@@ -35,7 +35,16 @@ from repro_torch.core.objective import DualEval, MatchingObjective
 from repro_torch.core.projections import ProjectionMap, UnitSimplexProjection
 from repro_torch.instances.buckets import BucketedInstance
 
-__all__ = ["COMM_MODES", "COMPRESS", "DistConfig", "DistributedMaximizer", "shard_instance"]
+__all__ = [
+    "COMM_MODES",
+    "COMPRESS",
+    "DistConfig",
+    "DistributedMaximizer",
+    "all_converged",
+    "all_reduce_sum",
+    "gather_rows",
+    "shard_instance",
+]
 
 COMM_MODES = ("psum", "rank0")
 COMPRESS = ("none", "bf16", "bf16_ef")
@@ -65,7 +74,7 @@ def shard_instance(inst: BucketedInstance, rank: int, world: int) -> BucketedIns
     (`bucketize(shard_multiple=world)`), so each process sees the same
     shapes.  The block is a view where it is contiguous already (always for
     `world == 1`).  The local instance cannot `unpack_primal`; gather its
-    slabs first (`DistributedMaximizer.gather_primal`).
+    slabs first (`gather_rows`).
     """
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
@@ -82,6 +91,37 @@ def shard_instance(inst: BucketedInstance, rank: int, world: int) -> BucketedIns
             cost=b.cost[lo:hi].contiguous(), mask=b.mask[lo:hi].contiguous(),
         ))
     return dataclasses.replace(inst, buckets=tuple(buckets), pack_info=None)
+
+
+def all_reduce_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of `v` over the processes (a new tensor; `v` is untouched)."""
+    out = v.reshape(-1).clone()
+    tdist.all_reduce(out)
+    return out.reshape(v.shape)
+
+
+def all_converged(done: torch.Tensor) -> torch.Tensor:
+    """Collective stop predicate: every process must vote converged (one
+    int32 all_reduce)."""
+    votes = done.to(torch.int32).reshape(1)
+    tdist.all_reduce(votes)
+    return votes[0] == tdist.get_world_size()
+
+
+def gather_rows(x_slabs) -> Optional[tuple[torch.Tensor, ...]]:
+    """The whole primal slabs on rank 0 (None elsewhere): every process's
+    rows in rank order, for `unpack_primal` with the whole instance.  One
+    broadcast per bucket and process."""
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    full = []
+    for x in x_slabs:
+        x, parts = x.contiguous(), []
+        for src in range(world):
+            buf = x if src == rank else torch.empty_like(x)
+            tdist.broadcast(buf, src=src)
+            parts.append(buf)
+        full.append(torch.cat(parts))
+    return tuple(full) if rank == 0 else None
 
 
 def _make_calculate(local_obj: MatchingObjective, dist: DistConfig, rhs: torch.Tensor):
@@ -124,7 +164,7 @@ class DistributedMaximizer:
     schedule and the AGD stage loops are the single-device ones
     (`core.maximizer`); this class adds the sharded `calculate`, the sharded
     power iteration (one all_reduce of A A^T u per step), the unanimous stop
-    vote, and `gather_primal`.
+    vote; `gather_rows` reassembles the primal on rank 0.
     """
 
     def __init__(
@@ -159,22 +199,12 @@ class DistributedMaximizer:
         return torch.zeros(self.objective.dual_dim + 2, dtype=torch.float32,
                            device=self.local.device)
 
-    def _all_converged(self, done: torch.Tensor) -> torch.Tensor:
-        """Collective stop predicate: every process must vote converged."""
-        votes = done.to(torch.int32).reshape(1)
-        tdist.all_reduce(votes)
-        return votes[0] == self.world
-
     def power_iteration(self) -> torch.Tensor:
         """sigma_max(A)^2 estimate: the objective's power iteration with
         A A^T u all-reduced at every step, from the same start vector as
         the single-device solve."""
-        def all_reduce(u):
-            tdist.all_reduce(u)
-            return u
-
         return self.objective.power_iteration(
-            self.config.seed, iters=self.config.power_iters, reduce=all_reduce
+            self.config.seed, iters=self.config.power_iters, reduce=all_reduce_sum
         )
 
     def solve(self, lam0: Optional[torch.Tensor] = None) -> SolveResult:
@@ -188,19 +218,5 @@ class DistributedMaximizer:
         return _continuation(
             _make_calculate(self.objective, self.dist, self.local.rhs), lam,
             self.power_iteration(), self.config, comm0=self._comm0,
-            stop_reduce=self._all_converged,
+            stop_reduce=all_converged,
         )
-
-    def gather_primal(self, x_slabs) -> Optional[tuple[torch.Tensor, ...]]:
-        """The whole primal slabs on rank 0 (None elsewhere): every
-        process's rows in rank order, for `unpack_primal` with the whole
-        instance.  One broadcast per bucket and process."""
-        full = []
-        for x in x_slabs:
-            parts = []
-            for src in range(self.world):
-                buf = x if src == self.rank else torch.empty_like(x)
-                tdist.broadcast(buf, src=src)
-                parts.append(buf)
-            full.append(torch.cat(parts))
-        return tuple(full) if self.rank == 0 else None

@@ -129,6 +129,11 @@ class BucketedInstance:
     num_families: int
     # set by `bucketize`; None for instances built by `repro_torch.convert`
     pack_info: Optional[PackInfo] = None
+    # the compiled formulation (`repro_torch.formulation.FormulationSpec`)
+    # that `MatchingObjective` resolves; None is the matching formulation.
+    # `dataclasses.replace` keeps it, so it rides through `normalize_rows`,
+    # `shard_instance` and `to`
+    formulation: Optional[object] = None
 
     @property
     def dual_dim(self) -> int:

@@ -3,15 +3,21 @@
   fused_dual_oracle_call      one-pass oracle, every bucket   dual_oracle.oracle_call
   fused_dual_primal_call      the primal step, every bucket   dual_primal.primal_call
   fused_project_simplex_call  projection, every bucket        simplex_proj.simplex_call
+  fused_pdhg_step_call        PDHG prox step, every bucket    dual_oracle.oracle_call
   fused_dual_oracle           one-pass oracle, one bucket     dual_oracle.dual_oracle
   fused_dual_primal           the primal step, one bucket     dual_primal.dual_primal
   fused_project_simplex       projection, one slab            simplex_proj.simplex_proj
+  fused_pdhg_step             PDHG prox step, one bucket      dual_oracle.dual_oracle
+                              (the reference's entry, for parity only)
 
 The whole-call entry points are what `MatchingObjective` calls: one kernel
 plan per objective (`plan_slab_kernel`, built once on the card), one oracle
 launch and one finalize per call on the main path, one launch of the
 primal step or of the projection per call on the other paths (one more per
-bucket wider than 32).
+bucket wider than 32).  The PDHG engine's fused prox step is the oracle
+with an iterate-dependent cost (`fused_pdhg_step`): its whole-call form
+writes persistent `cost_eff` buffers in place and makes one oracle call
+through a plan built once per solve over them (`plan_pdhg_step`).
 
 Each routes by where the tensors live:
   * CPU tensors take the plain version (`ref.dual_oracle_ref`,
@@ -30,8 +36,10 @@ The kernels need no row padding: they mask the ragged tail themselves.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import dual_oracle as kdo
@@ -48,8 +56,12 @@ __all__ = [
     "fused_dual_primal_call",
     "fused_project_simplex",
     "fused_project_simplex_call",
+    "fused_pdhg_step",
+    "fused_pdhg_step_call",
+    "PDHGStep",
     "oracle_hist_partial_bytes",
     "oracle_slab_slot_bytes",
+    "plan_pdhg_step",
     "plan_slab_kernel",
     "width_routed",
 ]
@@ -289,3 +301,121 @@ def fused_project_simplex(
     if not _use_kernel(v):
         return kref.simplex_ref(v, mask, radius, inequality=inequality)
     return ksp.simplex_proj(v, mask, radius, inequality=inequality)
+
+
+def _inv_tau(tau) -> float:
+    """1/tau rounded to fp32, as a Python float (tau: a float or a 0-dim
+    tensor, read once)."""
+    return float(np.float32(1.0) / np.float32(float(tau)))
+
+
+def _write_cost_eff(cost: torch.Tensor, x: torch.Tensor, inv_tau: float,
+                    tmp: torch.Tensor, out: torch.Tensor) -> None:
+    """out = cost - x * inv_tau, rounded twice as the reference computes it
+    (a product, then a difference: two launches on the card, never an FMA)."""
+    torch.mul(x, inv_tau, out=tmp)
+    torch.sub(cost, tmp, out=out)
+
+
+def fused_pdhg_step(
+    idx: torch.Tensor,  # [n, L] int32
+    coeff: torch.Tensor,  # [m, n, L] fp32 compute view
+    cost: torch.Tensor,  # [n, L] fp32
+    mask: torch.Tensor,  # [n, L] fp32
+    x: torch.Tensor,  # [n, L] fp32 current primal slab
+    y: torch.Tensor,  # [m * J] fp32 current duals
+    tau,  # primal step (float or 0-dim tensor)
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One structured-PDHG primal prox step for one bucket: `(x_new, hist)`.
+
+    The PDHG primal update `x+ = Proj_C(x - tau * (c + A'y))` is the dual
+    oracle's `Proj_C(-(A'y + cost_eff) / gamma)` with `cost_eff = c - x/tau`
+    and `gamma = 1/tau` (both rounded to fp32), so one oracle launch takes
+    the prox step and emits this bucket's `hist = A x+` [m, J].  The slabs
+    are fp32 compute views: `cost_eff` changes every iteration, so the
+    quantized storage forms (a fixed per-bucket cost scale) do not apply.
+
+    The reference's per-bucket entry, kept for parity with it: no solve
+    calls it (the engine takes every bucket at once, `fused_pdhg_step_call`).
+    """
+    inv_tau = _inv_tau(tau)
+    cost_eff = torch.empty_like(cost)
+    _write_cost_eff(cost, x, inv_tau, torch.empty_like(x), cost_eff)
+    x_new, hist, _, _ = fused_dual_oracle(
+        idx, coeff, cost_eff, mask, y, inv_tau, num_destinations=num_destinations,
+        radius=radius, inequality=inequality)
+    return x_new, hist
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PDHGStep:
+    """The fused PDHG prox step over every bucket of one solve.
+
+    `slabs` are the buckets with their cost replaced by one persistent fp32
+    `cost_eff` buffer each, which every call rewrites in place; `plan` is
+    the oracle's plan over them (None on the CPU), built once: the buffers
+    never move, and the plan's fixed-point shift depends only on idx, coeff,
+    mask and the radius, so it holds for every iterate."""
+
+    costs: tuple[torch.Tensor, ...]  # c per bucket (fp32 compute views)
+    slabs: tuple[kdo.Slab, ...]  # idx, coeff and mask, cost = the cost_eff buffer
+    scratch: torch.Tensor  # flat fp32: x * inv_tau of one bucket at a time
+    num_destinations: int
+    radius: float
+    inequality: bool
+    plan: Optional[kdo.SlabPlan]
+
+    @property
+    def launches_per_call(self) -> int:
+        """Oracle launches of one call on the card (0 on the CPU)."""
+        return 0 if self.plan is None else len(self.plan.launches)
+
+    def write_cost_eff(self, x_slabs, inv_tau: float) -> None:
+        """Each bucket's buffer = c - x * inv_tau, in place."""
+        for c, x, s in zip(self.costs, x_slabs, self.slabs):
+            _write_cost_eff(c, x, inv_tau, self.scratch[:x.numel()].view(x.shape), s.cost)
+
+
+def plan_pdhg_step(
+    buckets,  # fp32 compute views (`MatchingObjective._buckets`)
+    costs,  # the cost of each bucket (fp32)
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+) -> PDHGStep:
+    """Allocate the `cost_eff` buffers of a solve and plan the oracle over
+    them (on the card; on the CPU there is no plan)."""
+    slabs = tuple(kdo.Slab(b.idx, b.coeff, torch.empty_like(c), b.mask)
+                  for b, c in zip(buckets, costs))
+    scratch = torch.empty(max(c.numel() for c in costs), dtype=torch.float32,
+                          device=costs[0].device)
+    plan = plan_slab_kernel("dual_oracle", slabs, num_destinations, radius=radius,
+                            inequality=inequality)
+    return PDHGStep(tuple(costs), slabs, scratch, num_destinations, float(radius),
+                    bool(inequality), plan)
+
+
+def fused_pdhg_step_call(
+    step: PDHGStep,
+    x_slabs,  # [n, L] fp32 per bucket: the current primal
+    y: torch.Tensor,  # [m * J] fp32 current duals
+    tau,  # primal step (float or 0-dim tensor)
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """The PDHG prox step of every bucket: `(x_new slabs, A x_new [m*J])`.
+
+    Writes each bucket's `cost_eff = c - x * fp32(1/tau)` into the step's
+    buffer, then makes one whole oracle call with gamma = fp32(1/tau): on
+    the card one oracle launch for all buckets of width <= 32 and one
+    finalize, A x exact in int64 fixed point; on the CPU the plain call,
+    bucket by bucket."""
+    inv_tau = _inv_tau(tau)
+    step.write_cost_eff(x_slabs, inv_tau)
+    xs, ax, _, _ = fused_dual_oracle_call(
+        step.slabs, y, inv_tau, num_destinations=step.num_destinations,
+        radius=step.radius, inequality=step.inequality, plan=step.plan)
+    return xs, ax

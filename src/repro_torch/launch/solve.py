@@ -2,15 +2,19 @@
 column-sharded over several.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --sources 100000 \
-        [--fused-oracle | --fused-kernel] [--slab-dtype float32] [--device cuda]
+        [--fused-oracle | --fused-kernel] [--slab-dtype float32] [--device cuda] \
+        [--formulation capacity-cap [--formulation-param 0.4]] [--engine pdhg]
     PYTHONPATH=src torchrun --nproc_per_node N -m repro_torch.launch.solve \
         --shards N [--comm-mode psum] [--compress none] ...
 
-Port of `repro.launch.solve` (the AGD engine, the matching formulation):
-generate the instance, pack it, Jacobi-normalize it, and run AGD with
-gamma-continuation, on one device or, with `--shards N > 1`, with one
-process per card (`core.sharding.DistributedMaximizer`).  Prints what the
-JAX CLI prints (rank 0 only).  `--device cuda` (the default) needs a card.
+Port of `repro.launch.solve`: generate the instance, pack it,
+Jacobi-normalize it, compile the scenario formulation, and solve it: with
+AGD and gamma-continuation (`--engine agd`, and `auto`, which a one-shot
+solve maps to agd) on one device or, with `--shards N > 1`, one process per
+card (`core.sharding.DistributedMaximizer`); or with the structured PDHG
+engine at any shard count (`engines.pdhg.solve_pdhg_sharded`;
+`--fused-oracle` fuses its prox step).  Prints what the JAX CLI prints
+(rank 0 only).  `--device cuda` (the default) needs a card.
 """
 from __future__ import annotations
 
@@ -28,7 +32,10 @@ from repro_torch.core import (
     DistConfig, DistributedMaximizer, Maximizer, MaximizerConfig,
     MatchingObjective, SolveResult, normalize_rows,
 )
+from repro_torch.core.sharding import gather_rows
 from repro_torch.device import resolve_device
+from repro_torch.engines.pdhg import solve_pdhg_sharded
+from repro_torch.formulation import SCENARIOS, scenario_formulation
 from repro_torch.launch import dist as launch_dist
 from repro_torch.instances import (
     BucketedInstance, EdgeListInstance, MatchingInstanceSpec, bucketize,
@@ -36,8 +43,6 @@ from repro_torch.instances import (
 )
 
 __all__ = ["SolveRun", "build_parser", "main", "run"]
-
-_NOT_PORTED = "not ported yet"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,9 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tol-viol", type=float, default=None,
                     help="max-violation tolerance (enables early stop)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # reference options this port does not run yet: refused below
-    ap.add_argument("--engine", default="agd", choices=["agd", "pdhg", "auto"])
-    ap.add_argument("--formulation", default="matching")
+    ap.add_argument("--engine", default="agd", choices=["agd", "pdhg", "auto"],
+                    help="solver engine; 'auto' is the service's adaptive "
+                         "policy, and a one-shot solve has no per-tenant "
+                         "history, so it runs agd")
+    ap.add_argument("--formulation", default="matching", choices=list(SCENARIOS),
+                    help="scenario formulation compiled through "
+                         "repro_torch.formulation")
+    ap.add_argument("--formulation-param", type=float, default=None,
+                    help="primary scenario knob: simplex radius / cap / "
+                         "floor / pace (scenario default when omitted)")
     return ap
 
 
@@ -78,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
 class SolveRun:
     edges: EdgeListInstance
     instance: BucketedInstance  # packed and Jacobi-normalized (all rows)
-    objective: MatchingObjective  # this process's (its rows when sharded)
+    # this process's AGD objective (its rows when sharded); None for pdhg
+    objective: Optional[MatchingObjective]
     config: MaximizerConfig
     result: SolveResult
     setup_s: float
@@ -90,23 +103,25 @@ class SolveRun:
     violation: float  # max(0, Ax - b) at the last iteration
     shards: int
     rank: int
+    engine: str  # "agd" or "pdhg"
+
+
+def _engine(args) -> str:
+    return "agd" if args.engine == "auto" else args.engine
 
 
 def _refuse(ap: argparse.ArgumentParser, args) -> None:
-    """The reference's own refusals, then the options not ported yet."""
+    """The reference's own refusals."""
     if args.formulation != "matching" and (args.fused_kernel or args.fused_oracle):
         ap.error("--fused-kernel/--fused-oracle implement the simplex "
                  "feasible set; only --formulation matching can use them")
-    if args.engine == "pdhg":
+    if _engine(args) == "pdhg":
         if args.formulation != "matching":
             ap.error("--engine pdhg solves the simplex-constrained matching "
                      "LP; only --formulation matching is supported")
         if args.fused_kernel:
             ap.error("--engine pdhg fuses its prox step through the one-pass "
                      "dual oracle; use --fused-oracle, not --fused-kernel")
-        ap.error(f"--engine pdhg is {_NOT_PORTED}")
-    if args.formulation != "matching":
-        ap.error(f"--formulation {args.formulation} is {_NOT_PORTED}")
     if args.shards < 1:
         ap.error("--shards must be at least 1")
 
@@ -137,29 +152,32 @@ def run(args) -> SolveRun:
     packed = bucketize(edges, shard_multiple=shards, dtype=args.slab_dtype,
                        device=device if shards == 1 else "cpu")
     scaled, _ = normalize_rows(packed)
+    comp = scenario_formulation(args.formulation, args.formulation_param).compile(scaled)
     setup_s = time.perf_counter() - t0
 
-    cfg = MaximizerConfig(iters_per_stage=args.iters_per_stage,
-                          tol_grad=args.tol_grad, tol_viol=args.tol_viol)
-    if shards > 1:
-        solver = DistributedMaximizer(
-            scaled, cfg,
-            DistConfig(comm_mode=args.comm_mode, compress=args.compress,
-                       fused_kernel=args.fused_kernel,
-                       fused_oracle=args.fused_oracle),
-            device=device,
-        )
-        obj, rank = solver.objective, solver.rank
+    cfg = MaximizerConfig(iters_per_stage=args.iters_per_stage, tol_grad=args.tol_grad,
+                          tol_viol=args.tol_viol)
+    dist = DistConfig(comm_mode=args.comm_mode, compress=args.compress,
+                      fused_kernel=args.fused_kernel, fused_oracle=args.fused_oracle)
+    engine, obj = _engine(args), None
+    rank = tdist.get_rank() if shards > 1 else 0
+    if engine == "pdhg":
+        # one driver for any shard count, as the reference's CLI has it
+        solve = lambda: solve_pdhg_sharded(  # noqa: E731
+            scaled, cfg, dist, device=device if shards > 1 else None)
+    elif shards > 1:
+        dm = DistributedMaximizer(comp.sharded_instance(), cfg, dist,
+                                  projection=comp.projection, device=device)
+        obj, solve = dm.objective, dm.solve
     else:
-        obj = MatchingObjective(scaled, fused_kernel=args.fused_kernel,
-                                fused_oracle=args.fused_oracle)
-        solver, rank = Maximizer(obj, cfg), 0
+        obj = comp.objective(fused_kernel=args.fused_kernel, fused_oracle=args.fused_oracle)
+        solve = Maximizer(obj, cfg).solve
     _sync(device)
     t0 = time.perf_counter()
-    res = solver.solve()
+    res = solve()
     _sync(device)
     solve_s = time.perf_counter() - t0
-    x_slabs = solver.gather_primal(res.x_slabs) if shards > 1 else res.x_slabs
+    x_slabs = gather_rows(res.x_slabs) if shards > 1 else res.x_slabs
     value = None
     if rank == 0:
         value = -float(np.dot(edges.cost, unpack_primal(packed, x_slabs)))
@@ -170,7 +188,7 @@ def run(args) -> SolveRun:
         budget=cfg.total_iter_budget if cfg.early_stop else cfg.total_iters,
         value=value,
         violation=float(res.stats[-1].max_violation[-1]),
-        shards=shards, rank=rank,
+        shards=shards, rank=rank, engine=engine,
     )
 
 
@@ -195,10 +213,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     if r.rank != 0:
         return 0
     print(f"generated {r.edges.nnz} nnz in {r.setup_s:.1f}s; shards={r.shards}; "
-          f"formulation=matching; slab_dtype={args.slab_dtype}")
+          f"formulation={args.formulation}; slab_dtype={args.slab_dtype}")
     dt = r.solve_s
     print(f"solved in {dt:.1f}s ({dt / max(r.total_iters, 1) * 1e3:.2f} ms/iter, "
-          f"{r.total_iters}/{r.budget} iters, engine=agd)")
+          f"{r.total_iters}/{r.budget} iters, engine={r.engine})")
     print(f"g = {float(r.result.g):.6f}  value = {r.value:.4f}  "
           f"viol = {r.violation:.3e}")
     return 0

@@ -1,7 +1,7 @@
 """Card-only tests of the port: the three hand-written kernels (the dual
 oracle, the primal step and the simplex projection) against their plain
-PyTorch versions, and small solves through them against the same solves on
-the CPU.
+PyTorch versions, the dual oracle as the PDHG engine's fused prox step, and
+small solves through them against the same solves on the CPU.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -28,6 +28,7 @@ from repro_torch.instances import (
 )
 from repro_torch.instances.buckets import Bucket, convert_bucket
 from repro_torch.core.projections import UnitSimplexProjection
+from repro_torch.engines.pdhg import PDHGEngineConfig, pdhg_raw_solve
 from repro_torch.kernels import dual_oracle as kdo
 from repro_torch.kernels import dual_primal as kdp
 from repro_torch.kernels import ops as kops
@@ -380,3 +381,77 @@ def test_simplex_call_refuses_what_the_plan_does_not_take(cuda):
         ksp.simplex_call(plan, [shifted, vs[1]], [masks[0], masks[1]])
     with pytest.raises(ValueError, match="feasible set"):
         kops.fused_project_simplex_call(vs, masks, radius=2.0, plan=plan)
+
+
+# -- the dual oracle as the PDHG engine's fused prox step ----------------------------
+
+
+def _pdhg_inputs(seed, buckets, J, m, device):
+    """A nonzero primal x per bucket (0 on pad slots) and random duals y."""
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.random(tuple(b.cost.shape)).astype(np.float32)).to(device)
+          * b.mask for b in buckets]
+    y = torch.from_numpy(rng.random(m * J).astype(np.float32)).to(device)
+    return xs, y
+
+
+def _held_pdhg_step(step, xs, y, tau, J):
+    """One whole-call step held bitwise: cost_eff against the CPU's two
+    roundings, x+ against the plain whole call on the same cost_eff, A x+
+    against the fixed-point plain sum."""
+    got_xs, got_ax = kops.fused_pdhg_step_call(step, xs, y, tau)
+    inv_tau = float(np.float32(1.0) / np.float32(tau))
+    for c, x, s in zip(step.costs, xs, step.slabs):
+        want = torch.sub(c.cpu(), torch.mul(x.cpu(), inv_tau))
+        assert torch.equal(s.cost.cpu(), want)
+    want_xs, _, _, _ = kref.dual_oracle_call_ref(step.slabs, y, inv_tau, J)
+    assert all(torch.equal(a, b) for a, b in zip(got_xs, want_xs))
+    fixed = kref.fixed_point_hist(step.slabs, y, inv_tau, J, step.plan.shift)
+    assert torch.equal(got_ax, fixed)
+    return got_xs
+
+
+@pytest.mark.parametrize("L", [1, 8, 16, 32, 64])
+def test_pdhg_step_is_bitwise_plain(cuda, L):
+    J, m = 64, 2
+    buckets, _ = _slabs(40 + L, (L,), 400, m, J, "float32", cuda)
+    step = kops.plan_pdhg_step(buckets, [b.cost for b in buckets], num_destinations=J)
+    xs, y = _pdhg_inputs(L, buckets, J, m, cuda)
+    before, fin = kdo.launches, kdo.finalize_launches
+    _held_pdhg_step(step, xs, y, 0.37, J)
+    assert (kdo.launches - before, kdo.finalize_launches - fin) == (1, 1)
+
+
+def test_pdhg_step_plan_is_reused_with_buffers_rewritten(cuda):
+    """One plan over six buckets of widths 1-32: one oracle launch and one
+    finalize per call; three iterations rewrite the cost_eff buffers in place
+    (same pointers, same plan) and each step is bitwise its plain version."""
+    J, m = 64, 1
+    buckets, _ = _slabs(50, (1, 2, 4, 8, 16, 32), 500, m, J, "float32", cuda)
+    step = kops.plan_pdhg_step(buckets, [b.cost for b in buckets], num_destinations=J)
+    assert step.launches_per_call == 1
+    ptrs = [s.cost.data_ptr() for s in step.slabs]
+    xs, y = _pdhg_inputs(5, buckets, J, m, cuda)
+    for it in range(3):
+        before, fin = kdo.launches, kdo.finalize_launches
+        xs = _held_pdhg_step(step, xs, y, 0.5 + 0.1 * it, J)
+        assert (kdo.launches - before, kdo.finalize_launches - fin) == (1, 1)
+        y = torch.clamp_min(y + 0.1 * torch.randn_like(y), 0.0)
+    assert [s.cost.data_ptr() for s in step.slabs] == ptrs
+
+
+def test_fused_pdhg_solve_launches_kernel_and_matches_cpu(cuda):
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=60,
+                                avg_degree=6.0, num_families=2, seed=4)
+    cfg = MaximizerConfig(gammas=(0.01,), iters_per_stage=400, check_every=50)
+    pcfg = PDHGEngineConfig(restart="adaptive", dense="off")
+    packed = bucketize(generate_matching_instance(spec), device=cuda)
+    kdo.launches = kdo.finalize_launches = 0
+    on_card = pdhg_raw_solve(packed, torch.zeros(packed.dual_dim, device=cuda), cfg,
+                             normalize=False, fused_oracle=True, pcfg=pcfg)
+    per_call = 1 + sum(b.length > 32 for b in packed.buckets)
+    assert kdo.launches == per_call * 400 and kdo.finalize_launches == 400
+    cpu = packed.to("cpu")
+    on_cpu = pdhg_raw_solve(cpu, torch.zeros(cpu.dual_dim), cfg, normalize=False,
+                            fused_oracle=True, pcfg=pcfg)
+    assert abs(float(on_card.g) - float(on_cpu.g)) <= 1e-5 * abs(float(on_cpu.g))

@@ -6,8 +6,10 @@ and 4 processes on the CPU: the g trace of every communication mode against
 the single-process port within 1e-3 (0.1 for the bf16 wire with error
 feedback); with early stopping identical `iters_used` and lam within 1e-6
 rel-L2; the same with the fused primal kernel and the fused oracle; a
-2-process solve against the JAX package's single-device Maximizer; and the
-CLI's `--shards 2` against `--shards 1`.
+2-process solve against the JAX package's single-device Maximizer; the
+CLI's `--shards 2` against `--shards 1`; and the sharded PDHG solve over 2
+processes against the single-process PDHG solve (g rtol 1e-3, the
+reference's bound, tests/test_engines.py:342), dense and bucketed.
 
 The processes join through a file in the test's tmp_path (no TCP port),
 run one thread each, and import no JAX: the reference's start vector
@@ -25,6 +27,8 @@ from repro_torch.core import (
     MatchingObjective, normalize_rows, shard_instance,
 )
 from repro_torch.core import objective as tobj
+from repro_torch.core.sharding import gather_rows
+from repro_torch.engines.pdhg import PDHGEngineConfig, pdhg_raw_solve, solve_pdhg_sharded
 from repro_torch.instances import (
     MatchingInstanceSpec, bucketize, generate_matching_instance,
 )
@@ -72,6 +76,23 @@ def _solve_modes(cfg, runs, start=None):
     return {name: _result(DistributedMaximizer(inst, MaximizerConfig(**cfg),
                                                DistConfig(**kw)).solve())
             for name, kw in runs.items()}
+
+
+PDHG_SPEC = dict(num_sources=60, num_destinations=10, avg_degree=4.0, seed=5)
+PDHG_CFG = dict(gammas=(0.01,), iters_per_stage=4000, tol_grad=1e-4, check_every=50)
+
+
+def _pdhg_instance():
+    return bucketize(generate_matching_instance(MatchingInstanceSpec(**PDHG_SPEC)),
+                     shard_multiple=2, device="cpu")
+
+
+def _pdhg_sharded(dense, fused):
+    res = solve_pdhg_sharded(_pdhg_instance(), MaximizerConfig(**PDHG_CFG),
+                             DistConfig(fused_oracle=fused),
+                             PDHGEngineConfig(restart="adaptive", dense=dense))
+    return {"g": float(res.g), "iters": res.iters_used, "restarts": res.restarts,
+            "lam": res.lam.numpy()}
 
 
 def _cli(argv):
@@ -198,6 +219,24 @@ def test_world_of_one_equals_the_single_device_solve(tmp_path):
     assert got["iters_used"] == ref.iters_used
 
 
+@pytest.mark.parametrize("dense,fused", [("auto", False), ("off", True)])
+def test_pdhg_sharded_matches_single_process(tmp_path, dense, fused):
+    """The sharded PDHG solve in 2 processes against the single-process solve
+    (fused prox step, as the reference's test has it); the 2 shards take the
+    dense path under "auto" and the fused all-reduced A x under "off"."""
+    inst = _pdhg_instance()
+    single = pdhg_raw_solve(inst, torch.zeros(inst.dual_dim), MaximizerConfig(**PDHG_CFG),
+                            normalize=False, fused_oracle=True,
+                            pcfg=PDHGEngineConfig(restart="adaptive"))
+    got = _spawn(tmp_path, 2, _pdhg_sharded, dense, fused)
+    np.testing.assert_allclose(got["g"], float(single.g), rtol=1e-3)
+    assert got["restarts"] > 0
+    # without a process group the sharded entry is the single-process solve
+    alone = solve_pdhg_sharded(_pdhg_instance(), MaximizerConfig(**PDHG_CFG),
+                               pcfg=PDHGEngineConfig(restart="adaptive"))
+    assert alone.iters_used == (int(single.iters[0]),)
+
+
 def test_distributed_maximizer_needs_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         DistributedMaximizer(_instance())
@@ -213,4 +252,4 @@ def test_gather_primal_reassembles_rows(tmp_path):
 
 def _gather_round_trip():
     dm = DistributedMaximizer(_instance())
-    return dm.gather_primal([b.cost for b in dm.local.buckets])
+    return gather_rows([b.cost for b in dm.local.buckets])

@@ -126,7 +126,41 @@ def test_cli_runs_on_cpu(capsys):
      ["--formulation", "budget-pacing"], ["--formulation", "capacity-cap"]],
 )
 def test_cli_refuses_unported_options(capsys, flags):
+    """Each of the reference CLI's formulation and engine options runs on the
+    CPU and names itself on the output lines (the test keeps its name from
+    when the port refused these options)."""
+    assert tsolve.main(["--device", "cpu", "--sources", "200", "--destinations", "20",
+                        "--iters-per-stage", "5", *flags]) == 0
+    out = capsys.readouterr().out.splitlines()
+    name = flags[1] if flags[0] == "--formulation" else "matching"
+    assert f"formulation={name};" in out[0]
+    engine = flags[1] if flags[0] == "--engine" else "agd"
+    assert f"engine={engine})" in out[1]
+    g, value, viol = (float(out[2].split()[k]) for k in (2, 5, 8))
+    assert all(np.isfinite(v) for v in (g, value, viol))
+
+
+@pytest.mark.parametrize(
+    "flags,message",
+    [(["--formulation", "capacity-cap", "--fused-oracle"], "simplex"),
+     (["--engine", "pdhg", "--formulation", "capacity-cap"], "matching"),
+     (["--engine", "pdhg", "--fused-kernel"], "--fused-oracle")],
+)
+def test_cli_keeps_reference_refusals(capsys, flags, message):
     with pytest.raises(SystemExit) as exc:
         tsolve.main(["--device", "cpu", "--sources", "50", *flags])
     assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
+
+
+def test_cli_pdhg_fused_matches_unfused(capsys):
+    """`--engine pdhg` through the CLI, fused and unfused prox steps: the
+    reference's fused-vs-unfused bound on g (rtol 1e-5)."""
+    argv = ["--device", "cpu", "--sources", "300", "--destinations", "20",
+            "--iters-per-stage", "25", "--engine", "pdhg"]
+    runs = [tsolve.run(tsolve.build_parser().parse_args(argv + extra))
+            for extra in ([], ["--fused-oracle"])]
+    assert [r.engine for r in runs] == ["pdhg", "pdhg"]
+    assert [r.total_iters for r in runs] == [150, 150]
+    np.testing.assert_allclose(float(runs[1].result.g), float(runs[0].result.g), rtol=1e-5)
+    assert runs[1].result.restarts is not None
