@@ -50,9 +50,20 @@ Phases, each printing one line before the last:
   5. times: each kernel's output at the main path's shapes held against
      its plain version; each kernel, its plain version and its HBM bound
      there, per bucket and per whole call, by CUDA events (the simplex
-     kernel also by profiler device time, at fp32 and bf16); the all-reduce of the sharded solve at
+     kernel also by profiler device time, at fp32 and bf16, and with L2
+     flushed before each call); the all-reduce of the sharded solve at
      world size 1; and the device's busy share over a profiled window of
-     AGD iterations (torch.profiler).
+     AGD iterations (torch.profiler);
+  6. cadence_path: the recurring-solve cadence at the main path's instance
+     (`DeltaIngestor`, `device_put_instance`, three cadences of
+     `compiled_solver` with the fused oracle: cold, a mixed delta replayed
+     by `apply_scatter_plan` and solved warm, a cost-only delta solved with
+     `compiled_solver_fixed_sigma`), each replay bitwise a fresh upload,
+     kernel 1 in every AGD iteration, the warm solve against the unfused
+     one, drift against the gamma bound, convergence traces and the
+     Prometheus text; coo_pdhg: the unstructured COO PDHG baseline at the
+     main path's instance (600 iterations, two runs bit-equal) and at
+     tests/test_pdhg.py's size against scipy's HiGHS.
 Every path is driven with all launch counters set to 0 just before it and
 read just after; kernel 1's entry in the kernels line gives its launches on
 each path it runs (`launches_by_path`).  The line before the last is the JSON list of kernels; the
@@ -964,7 +975,7 @@ def phase_pdhg_path(sources: int) -> dict:
         fail(f"non-finite pdhg result {out}")
     if not out["rel_primal_obj_fused_vs_unfused"] <= 1e-3:
         fail(f"fused vs unfused PDHG primal objectives beyond rtol 1e-3: {out}")
-    return {"run": r, "step": step, "summary": out}
+    return {"run": r, "step": step, "summary": out, "split": split}
 
 
 def pdhg_time_split(inst, cfg, cli_solve_s: float) -> dict:
@@ -1183,6 +1194,335 @@ def phase_formulation_path(main) -> dict:
         fail(f"non-finite formulation result {out}")
     if not x_max <= cap + 1e-5:
         fail(f"capacity cap {cap} broken: max x {x_max}")
+    return out
+
+
+def random_delta(edges, rng, *, frac_update=0.02, n_insert=3, n_delete=3, rhs_jitter=0.02):
+    """The reference service CLI's delta (`launch/service.py` `_random_delta`):
+    value updates of `frac_update` of the edges, `n_insert` new edges,
+    `n_delete` deleted ones and an rhs jittered by `rhs_jitter`."""
+    import numpy as np
+
+    from repro_torch.instances import InstanceDelta
+
+    spec = edges.spec
+    m, J, I = spec.num_families, spec.num_destinations, spec.num_sources
+    nnz = edges.nnz
+    n_upd = max(1, int(frac_update * nnz))
+    perm = rng.permutation(nnz)
+    upd, dele = perm[:n_upd], perm[n_upd: n_upd + n_delete]
+    existing = set((edges.src * J + edges.dst).tolist())
+    ins_s, ins_d = [], []
+    while len(ins_s) < n_insert:
+        s, d = int(rng.integers(I)), int(rng.integers(J))
+        if s * J + d not in existing:
+            existing.add(s * J + d)
+            ins_s.append(s)
+            ins_d.append(d)
+    return InstanceDelta(
+        insert_src=ins_s, insert_dst=ins_d,
+        insert_values=rng.uniform(0.1, 3.0, n_insert),
+        insert_coeff=rng.uniform(0.1, 2.0, (m, n_insert)),
+        delete_src=edges.src[dele], delete_dst=edges.dst[dele],
+        update_src=edges.src[upd], update_dst=edges.dst[upd],
+        update_values=edges.values[upd] * rng.uniform(0.9, 1.1, n_upd),
+        rhs=np.asarray(edges.rhs) * rng.uniform(1 - rhs_jitter, 1 + rhs_jitter, m * J),
+    )
+
+
+def restart_triggers(stats) -> list:
+    """Iterations of each stage whose g fell below the previous one's: the
+    adaptive restart's trigger, which resets the momentum."""
+    return [int((st.g[1:] < st.g[:-1]).sum()) for st in stats]
+
+
+def instance_bits_equal(a, b) -> bool:
+    """Every leaf of two instances equal bit for bit."""
+    import torch
+
+    from repro_torch.service.engine import _leaves
+
+    bits = lambda t: t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_cadence_path(main) -> dict:
+    """The recurring-solve cadence at the main path's instance, through the
+    port's entry points as the reference's service composes them: a
+    `DeltaIngestor` (row headroom 8), `device_put_instance`, then three
+    cadences of `compiled_solver` with Jacobi normalization and the fused
+    oracle (kernel 1 in every AGD iteration):
+      0 cold: the main path's six gamma stages x 100 iterations (fixed budget,
+        so the launch counts are exact);
+      1 the reference CLI's mixed delta (2% of the edges' values, 3 inserts,
+        3 deletes, the rhs jittered by 2%), replayed with `apply_scatter_plan`,
+        solved warm from cadence 0's lam over (0.1, 0.01) x 100 with the power
+        iteration, and held against the same warm solve with the unfused
+        oracle: g within 1e-5 rel, and lam within 1e-4 rel-L2 for the same
+        pair without adaptive restart, whose g < g_prev test flips on
+        near-ties and parts the two trajectories along a flat direction;
+      2 the same generator's cost-only delta (no inserts or deletes),
+        replayed, solved warm with `compiled_solver_fixed_sigma` and cadence
+        1's sigma^2.
+    After each replay every leaf is bitwise a fresh upload of the host slabs
+    and the pre-replay instance is unchanged.  Drift, the gamma bound (held
+    on cadence 2, where A is unchanged, in tests/test_stability.py's form),
+    the convergence traces, the stall detector and the Prometheus text are
+    reported; times are host-clocked and end in torch.cuda.synchronize()."""
+    import numpy as np
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core import MatchingObjective, MaximizerConfig, drift_bound, primal_drift
+    from repro_torch.core.objective import normalize_rows_traced
+    from repro_torch.instances import DeltaIngestor
+    from repro_torch.service import (
+        apply_scatter_plan, compile_cache_report, compiled_solver,
+        compiled_solver_fixed_sigma, device_put_instance, instance_nbytes, to_solve_result,
+    )
+    from repro_torch.telemetry import ConvergenceTrace, MetricsRegistry, StallDetector
+
+    r = main["run"]
+    edges = r.edges
+    telemetry.set_registry(MetricsRegistry())  # this phase's counters alone
+    cold_cfg = MaximizerConfig(iters_per_stage=100)
+    warm_cfg = MaximizerConfig(gammas=(0.1, 0.01), iters_per_stage=100)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t0
+
+    ing, build_s = clock(lambda: DeltaIngestor(edges, row_headroom=8))
+    dev, upload_s = clock(lambda: device_put_instance(ing.instance()))
+    per_call = 1 + sum(b.length > 32 for b in dev.buckets)
+    rng = np.random.default_rng(17)
+    detector = StallDetector()
+    cadences, launches, finalizes = [], 0, 0
+
+    def solve(k, mode, fn, *args):
+        nonlocal launches, finalizes
+        torch.cuda.synchronize()
+        reset_counts()
+        raw, solve_s = clock(lambda: fn(*args))
+        counts = read_counts()
+        res = to_solve_result(raw)
+        iters = int(sum(res.iters_used))
+        trace = ConvergenceTrace.from_result(res, tenant="t0", cadence=k, mode=mode)
+        trace.record()
+        launches += counts["dual_oracle"]
+        finalizes += counts["dual_oracle_finalize"]
+        out = {"cadence": k, "mode": mode, "solve_s": solve_s, "iterations": iters,
+               "ms_per_iter": solve_s / iters * 1e3, "g": float(res.g),
+               "sigma_sq": float(res.sigma_sq), "launch_counts": counts,
+               "oracle_calls": iters + 1, "power_iteration_oracle_calls": 0,
+               "expected_oracle_launches": per_call * (iters + 1),
+               "stall_flagged": detector.observe(trace), "convergence": trace.summary()}
+        if (counts["dual_oracle"] != per_call * (iters + 1)
+                or counts["dual_oracle_finalize"] != iters + 1
+                or counts["dual_primal"] or counts["simplex_proj"] or counts["width_routed"]):
+            fail(f"cadence {k} launches {counts}: expected {per_call * (iters + 1)} oracle "
+                 f"launches and {iters + 1} finalizes (every AGD iteration and the final "
+                 f"calculate; the power iteration runs A and A^T unfused)")
+        if not (math.isfinite(out["g"]) and all(bool(torch.isfinite(x).all())
+                                                 for x in res.x_slabs)):
+            fail(f"cadence {k}: non-finite result {out}")
+        return res, out
+
+    zero = torch.zeros(dev.dual_dim, device="cuda")
+    res0, c0 = solve(0, "cold", compiled_solver(cold_cfg, normalize=True, fused_oracle=True),
+                     dev, zero)
+    c0.update(build_s=build_s, upload_s=upload_s, instance_nbytes=instance_nbytes(dev),
+              nnz=ing.nnz, headroom_rows=ing.headroom(), dc_norm=ing.drain_cost_drift())
+    cadences.append(c0)
+    prev, prev_res = dev, res0
+    for k, (n_ins, n_del) in ((1, (3, 3)), (2, (0, 0))):
+        cur = ing.to_edge_list()
+        delta, gen_s = clock(lambda: random_delta(cur, rng, n_insert=n_ins, n_delete=n_del))
+        rep, ingest_s = clock(lambda: ing.apply(delta))
+        if not rep.in_place:
+            fail(f"cadence {k}: the delta fell back to a re-bucketize ({rep.fallback_reason})")
+        before = device_put_instance(prev)
+        new, replay_s = clock(lambda: apply_scatter_plan(prev, rep.plan))
+        replay_equal = instance_bits_equal(new, device_put_instance(ing.instance()))
+        input_kept = instance_bits_equal(prev, before)
+        del before
+        if not (replay_equal and input_kept):
+            fail(f"cadence {k}: replay bitwise the host slabs {replay_equal}, "
+                 f"pre-replay instance unchanged {input_kept}")
+        replay_event_ms = event_ms(lambda: apply_scatter_plan(prev, rep.plan), 10, warmup=1)
+        replay_device_ms, replay_events = device_events(
+            lambda: apply_scatter_plan(prev, rep.plan), 5)
+        dc = ing.drain_cost_drift()
+        if k == 1:
+            power_s = clock(lambda: MatchingObjective(normalize_rows_traced(new)[0])
+                            .power_iteration(warm_cfg.seed, iters=warm_cfg.power_iters))[1]
+            res, c = solve(k, "warm", compiled_solver(warm_cfg, normalize=True,
+                                                      fused_oracle=True), new, prev_res.lam)
+            unfused, unfused_s = clock(lambda: compiled_solver(
+                warm_cfg, normalize=True, fused_oracle=False)(new, prev_res.lam))
+            # the same pair without adaptive restart: the restart test
+            # g < g_prev flips on near-ties of g, so with it on the two
+            # trajectories part for reasons other than A x's rounding
+            plain_cfg = dataclasses.replace(warm_cfg, adaptive_restart=False)
+            fixed = [compiled_solver(plain_cfg, normalize=True, fused_oracle=f)(
+                new, prev_res.lam) for f in (True, False)]
+            c.update(power_iteration_s=power_s, power_iteration_share=power_s / c["solve_s"],
+                     unfused_solve_s=unfused_s,
+                     rel_l2_lam_fused_vs_unfused=rel_l2(res.lam, unfused.lam),
+                     rel_g_fused_vs_unfused=rel_diff(res.g, unfused.g),
+                     restart_triggers_fused_vs_unfused=[restart_triggers(res.stats),
+                                                        restart_triggers(unfused.stats)],
+                     no_restart_rel_l2_lam_fused_vs_unfused=rel_l2(fixed[0].lam, fixed[1].lam),
+                     no_restart_rel_g_fused_vs_unfused=rel_diff(fixed[0].g, fixed[1].g))
+            if not (c["no_restart_rel_l2_lam_fused_vs_unfused"] <= 1e-4
+                    and c["rel_g_fused_vs_unfused"] <= 1e-5):
+                fail(f"cadence 1: warm fused vs unfused beyond lam 1e-4 rel-L2 (without "
+                     f"adaptive restart) or g 1e-5 rel (with it): {c}")
+        else:
+            res, c = solve(k, "warm", compiled_solver_fixed_sigma(
+                warm_cfg, normalize=True, fused_oracle=True), new, prev_res.lam,
+                prev_res.sigma_sq)
+        drift = float(primal_drift(res.x_slabs, prev_res.x_slabs))
+        x_norm = float(torch.linalg.vector_norm(torch.cat([x.reshape(-1) for x in res.x_slabs])))
+        dlam = float(torch.linalg.vector_norm(res.lam - prev_res.lam))
+        sigma = math.sqrt(float(res.sigma_sq))
+        c.update(delta_generate_s=gen_s, ingest_host_ms=ingest_s * 1e3,
+                 n_update=rep.n_update, n_insert=rep.n_insert, n_delete=rep.n_delete,
+                 moved_rows=rep.moved_rows, plan_cells=rep.plan.num_cells,
+                 plan_runs=rep.plan.num_runs, plan_nbytes=rep.plan.nbytes,
+                 instance_nbytes=instance_nbytes(new),
+                 plan_share_of_upload=rep.plan.nbytes / instance_nbytes(new),
+                 replay_s=replay_s, replay_event_ms=replay_event_ms,
+                 replay_device_ms=replay_device_ms, replay_device_events=replay_events,
+                 replay_bitwise_host=replay_equal, pre_replay_unchanged=input_kept,
+                 generation=rep.generation, drift_l2=drift,
+                 drift_rel=drift / max(x_norm, 1e-12), dc_norm=dc, dlam_l2=dlam,
+                 drift_bound=drift_bound(warm_cfg.gammas[-1], dc, dlam, sigma))
+        if k == 2:
+            # A is unchanged: the bound of tests/test_stability.py holds
+            bound = drift_bound(warm_cfg.gammas[-1], dc * 1.5, dlam, sigma)
+            c["drift_within_bound"] = drift <= bound * 1.1
+            if not c["drift_within_bound"]:
+                fail(f"cadence 2 drift {drift} beyond the gamma bound {bound} x 1.1")
+        cadences.append(c)
+        prev, prev_res = new, res
+    for c in cadences:
+        emit({"phase": "cadence", **c})
+    text = telemetry.prometheus_text()
+    names = sorted({ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE")})
+    out = {"phase": "cadence_path", "sources": edges.spec.num_sources,
+           "oracle_launches": launches, "stall_flagged": sorted(detector.flagged),
+           "compile_cache": compile_cache_report(),
+           "prometheus_bytes": len(text), "prometheus_metrics": names,
+           "counters": telemetry.get_registry().snapshot()["counters"]}
+    print("prometheus: " + " ".join(names), flush=True)
+    emit(out)
+    return {"launches": launches, "finalizes": finalizes, "cadences": cadences}
+
+
+def phase_coo_pdhg(main, pdhg) -> dict:
+    """The unstructured COO PDHG baseline (the paper's comparator): at the
+    main path's instance for a fixed budget of 600 iterations, checks every
+    50 (as benchmarks/table3_vs_pdhg.py runs it), twice with equal bits, its
+    ms per iteration beside the structured PDHG path's, its residuals and
+    the device memory of its matrix, and its K x and K'y (exact int64
+    fixed-point sums) each timed beside the same sums by
+    torch.segment_reduce; then tests/test_pdhg.py's instance
+    (60 x 10, nu = 4) to convergence against scipy's HiGHS (primal objective
+    within rel 5e-3).  No kernel of the port runs here."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+
+    from repro_torch.core import PDHGConfig, from_edge_list, solve_pdhg
+    from repro_torch.instances import MatchingInstanceSpec, generate_matching_instance
+
+    edges = main["run"].edges
+    m = edges.spec.num_families
+    entries = (m + 1) * edges.nnz
+    rows = m * edges.spec.num_destinations + edges.spec.num_sources
+    # the COO arrays (int32 rows, cols, fp32 vals), each order's int64 index
+    # and fp32 values and its int64 segment ends, and c, q, u
+    reckoned = (entries * 12 + 2 * entries * 12 + 8 * (rows + edges.nnz)
+                + 4 * (2 * edges.nnz + rows))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lp = from_edge_list(edges)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated() - mem0
+    cfg = PDHGConfig(max_iters=600, tol=0.0, check_every=50)
+    reset_counts()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_pdhg(lp, cfg)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0))
+    counts = read_counts()
+    (a, a_s), (b, b_s) = runs
+    same = torch.equal(a.x, b.x) and torch.equal(a.y, b.y)
+    x = torch.rand(lp.num_cols, device="cuda")
+    y = torch.rand(lp.num_rows, device="cuda")
+
+    def segment_reduce(order, v):  # the same sums by torch.segment_reduce
+        offsets = torch.cat([order.ends.new_zeros(1), order.ends])
+        return torch.segment_reduce(order.vals * v[order.other], "sum", offsets=offsets,
+                                    unsafe=True)
+
+    split = pdhg.get("split", {}).get("not_cli_check_every_50", {})
+    out = {
+        "phase": "coo_pdhg", "nnz": edges.nnz, "entries": entries, "rows": rows,
+        "build_s": build_s, "matrix_bytes": lp.nbytes, "reckoned_bytes": reckoned,
+        "allocated_bytes": mem, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "iterations": a.iters, "solve_s_readings": [a_s, b_s],
+        "ms_per_iter": min(a_s, b_s) / a.iters * 1e3,
+        "matvec_pair_ms": event_ms(lambda: lp.KT(lp.K(x)), 20),
+        "K_ms": event_ms(lambda: lp.K(x), 20), "KT_ms": event_ms(lambda: lp.KT(y), 20),
+        "segment_reduce_K_ms": event_ms(lambda: segment_reduce(lp._by_row, x), 5),
+        "segment_reduce_KT_ms": event_ms(lambda: segment_reduce(lp._by_col, y), 5),
+        "K_rel_err_vs_segment_reduce": rel_l2(lp.K(x), segment_reduce(lp._by_row, x)),
+        "structured_pdhg_ms_per_iter_check_every_25": pdhg["summary"]["ms_per_iter"],
+        "structured_pdhg_ms_per_iter_check_every_50": split.get("ms_per_iter"),
+        "primal_obj": float(a.primal_obj), "dual_obj": float(a.dual_obj),
+        "rel_gap": float(a.rel_gap), "primal_res": float(a.primal_res),
+        "dual_res": float(a.dual_res), "bitwise_equal_runs": same, "launch_counts": counts,
+    }
+    del lp, runs, a, b
+    small = generate_matching_instance(MatchingInstanceSpec(
+        num_sources=60, num_destinations=10, avg_degree=4.0, seed=5))
+    t0 = time.perf_counter()
+    sres = solve_pdhg(from_edge_list(small), PDHGConfig(max_iters=40_000))
+    small_s = time.perf_counter() - t0
+    A, bvec, c = small.to_dense()
+    J = small.spec.num_destinations
+    cols = small.src * J + small.dst
+    S = np.zeros((small.spec.num_sources, small.nnz))
+    S[small.src, np.arange(small.nnz)] = 1.0
+    lpres = linprog(c[cols], A_ub=np.vstack([A[:, cols], S]),
+                    b_ub=np.concatenate([bvec, np.ones(small.spec.num_sources)]),
+                    bounds=(0, 1), method="highs")
+    rel = abs(float(sres.primal_obj) - lpres.fun) / abs(lpres.fun)
+    out["small"] = {"iterations": sres.iters, "converged": bool(sres.converged),
+                    "solve_s": small_s, "primal_obj": float(sres.primal_obj),
+                    "highs_obj": float(lpres.fun), "rel_vs_highs": rel}
+    emit(out)
+    if not same:
+        fail("two COO PDHG solves on the card differ in their bits")
+    if any(counts.values()):
+        fail(f"the COO PDHG baseline launched a kernel: {counts}")
+    if not all(math.isfinite(out[k]) for k in ("primal_obj", "dual_obj", "primal_res",
+                                               "dual_res", "rel_gap")):
+        fail(f"non-finite COO PDHG result {out}")
+    if not (out["small"]["converged"] and rel < 5e-3):
+        fail(f"COO PDHG on the 60 x 10 instance against HiGHS: {out['small']}")
     return out
 
 
@@ -1429,8 +1769,15 @@ def phase_times_primal_simplex(main) -> dict:
     out["primal"]["host_enqueue_ms"] = host_ms(lambda: kdp.primal_call(whole2, lam, gamma))
     out["primal"]["plain_ms"] = event_ms(over_buckets(lambda i: plain2(inst.buckets[i])), 5)
     call3 = lambda: ksp.simplex_call(whole3, vs, masks)
+    # the same call with L2 (50 MB) flushed before each: a 128 MB write
+    # evicts what the previous call left there, so every call reads its
+    # 131 MB from HBM, as the bound charges (3 x 4 B per slot: v and mask
+    # read and x written for every row, all-padding rows included)
+    flush = torch.empty(32 * 2**20, device=vs[0].device)
     out["simplex"].update(
         kernel_ms=event_ms(call3, 30), device_ms=device_ms(call3, 20, SIMPLEX_KERNELS),
+        device_ms_l2_flushed=device_ms(lambda: (flush.fill_(1.0), call3()), 20,
+                                       SIMPLEX_KERNELS),
         host_enqueue_ms=host_ms(call3),
         fused_project_simplex_call_ms=event_ms(lambda: kops.fused_project_simplex_call(
             vs, masks, plan=whole3), 30),
@@ -1573,6 +1920,8 @@ def main() -> int:
     timed(phase_formulation_path, main_path)
     times = timed(phase_times, main_path)
     times23 = timed(phase_times_primal_simplex, main_path)
+    cadence = timed(phase_cadence_path, main_path)
+    timed(phase_coo_pdhg, main_path, pdhg)
 
     def worst(sw):
         return max(v if isinstance(v, float) else max(v.values())
@@ -1594,14 +1943,16 @@ def main() -> int:
               max(worst(sweep), times["call"]["main_path_x_max_abs_err"],
                   pdhg_step["x_max_abs_err"]), times["call"],
               launches_by_path={"main": main_counts["dual_oracle"],
-                                "pdhg": pdhg_counts["dual_oracle"]},
+                                "pdhg": pdhg_counts["dual_oracle"],
+                                "cadence": cadence["launches"]},
               pdhg_step={k: pdhg_step[k] for k in ("kernel_ms", "device_ms", "plain_ms",
                                                    "bound_ms", "bound_by")}),
         entry("dual_oracle_finalize", "src/repro/kernels/ops.py:317",
               main_counts["dual_oracle_finalize"],
               times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle",
               launches_by_path={"main": main_counts["dual_oracle_finalize"],
-                                "pdhg": pdhg_counts["dual_oracle_finalize"]}),
+                                "pdhg": pdhg_counts["dual_oracle_finalize"],
+                                "cadence": cadence["finalizes"]}),
         entry("dual_primal", "src/repro/kernels/dual_primal.py:100",
               path2["launch_counts"]["dual_primal"],
               max(worst(sweep2), times23["primal"]["main_path_max_abs_err"]),

@@ -9,7 +9,9 @@ reinterpreted bit for bit, so this module needs neither JAX nor ml_dtypes.
 The packing bookkeeping of the reference does not travel, so a converted
 instance cannot `unpack_primal`.  An attached formulation does travel: its
 spec is rebuilt from the port's classes of the same names
-(`formulation_from_reference`).
+(`formulation_from_reference`).  The recurring-solve pieces travel too: an
+`InstanceDelta` (host numpy in both packages), a `ScatterPlan` (the port's
+holds CPU tensors) and the COO LP of the PDHG baseline.
 """
 from __future__ import annotations
 
@@ -19,13 +21,18 @@ import numpy as np
 import torch
 
 from repro_torch import formulation as tform
+from repro_torch.core.pdhg import COOLP
 from repro_torch.device import resolve_device
 from repro_torch.instances.buckets import Bucket, BucketedInstance
+from repro_torch.instances.deltas import BucketScatter, InstanceDelta, ScatterPlan
 
 __all__ = [
+    "coolp_from_reference",
+    "delta_from_reference",
     "formulation_from_reference",
     "instance_from_reference",
     "lam_from_numpy",
+    "scatter_plan_from_reference",
     "tensor_from_numpy",
 ]
 
@@ -94,3 +101,36 @@ def instance_from_reference(inst, device="cuda") -> BucketedInstance:
 def lam_from_numpy(lam, device="cuda") -> torch.Tensor:
     """Dual vector [m*J] as an fp32 tensor on `device`."""
     return tensor_from_numpy(np.asarray(lam, dtype=np.float32), device)
+
+
+def delta_from_reference(delta) -> InstanceDelta:
+    """The port's InstanceDelta holding the same arrays as `delta`."""
+    return InstanceDelta(**{
+        f.name: getattr(delta, f.name) for f in dataclasses.fields(InstanceDelta)
+    })
+
+
+def scatter_plan_from_reference(plan) -> ScatterPlan:
+    """The port's ScatterPlan (CPU tensors) of the reference's `plan`: the
+    same runs and the same cell values, bfloat16 bit for bit."""
+    cpu = lambda a: tensor_from_numpy(a, "cpu")
+    ops = tuple(
+        BucketScatter(
+            bucket=int(op.bucket), run_rows=cpu(op.run_rows), run_slots=cpu(op.run_slots),
+            run_lengths=cpu(op.run_lengths), idx=cpu(op.idx), cost=cpu(op.cost),
+            mask=cpu(op.mask), coeff=cpu(op.coeff),
+        )
+        for op in plan.ops
+    )
+    rhs = None if plan.rhs is None else cpu(plan.rhs)
+    return ScatterPlan(generation=int(plan.generation), ops=ops, rhs=rhs)
+
+
+def coolp_from_reference(lp, device="cuda") -> COOLP:
+    """The port's COOLP of the reference's (the same entries, in the same
+    order; the sorted copies are rebuilt)."""
+    t = lambda a: tensor_from_numpy(a, device)
+    return COOLP(
+        rows=t(lp.rows), cols=t(lp.cols), vals=t(lp.vals), c=t(lp.c), q=t(lp.q),
+        u=t(lp.u), num_rows=int(lp.num_rows), num_cols=int(lp.num_cols),
+    )

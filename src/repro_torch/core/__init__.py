@@ -1,5 +1,6 @@
 """Solver core: projections, the dual oracle, the AGD maximizer, and its
-column-sharded counterpart."""
+column-sharded counterpart; plus gamma-stability control (`stability`) and
+the unstructured COO PDHG baseline the paper compares against (`pdhg`)."""
 from repro_torch.core.maximizer import (
     PAPER_GAMMA_SCHEDULE,
     Maximizer,
@@ -31,6 +32,8 @@ from repro_torch.core.sharding import (
     DistributedMaximizer,
     shard_instance,
 )
+from repro_torch.core.stability import RecurringSolver, drift_bound, primal_drift
+from repro_torch.core.pdhg import COOLP, PDHGConfig, from_edge_list, solve_pdhg
 
 __all__ = [
     "PAPER_GAMMA_SCHEDULE",
@@ -56,4 +59,11 @@ __all__ = [
     "project_simplex_cmp",
     "project_box",
     "project_box_cut",
+    "drift_bound",
+    "primal_drift",
+    "RecurringSolver",
+    "COOLP",
+    "PDHGConfig",
+    "solve_pdhg",
+    "from_edge_list",
 ]

@@ -13,6 +13,10 @@ device: the fixed-budget stage never waits for the device, and the
 early-stopping stage waits once per `check_every` chunk, as the reference's
 `while_loop` of scanned chunks does.
 
+Each stage runs inside a `telemetry.span("stage")` and the power iteration
+inside `telemetry.span("power_iteration")`, as in the reference; a span
+reads the host clock only, so it measures the enqueue of device work.
+
 The stage loops take `calculate(lam, gamma, comm) -> (DualEval, comm)`:
 `comm` is an opaque per-process communication state threaded through the
 iterations (the error-feedback accumulator of the sharded solve's
@@ -26,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.objective import DualEval, MatchingObjective
 
 __all__ = [
@@ -299,20 +304,21 @@ def _continuation(
     stats: list[StageStats] = []
     steps: list[float] = []
     iters_used: list[int] = []
-    for gamma in cfg.gammas:
+    for k, gamma in enumerate(cfg.gammas):
         eta = step_size(cfg, sigma_sq, gamma).to(lam.dtype)
-        if cfg.early_stop:
-            lam, st, _, used = _stage_scan_early(
-                calculate, lam, gamma, eta, cfg.iters_per_stage,
-                tol_grad=cfg.tol_grad, tol_viol=cfg.tol_viol,
-                check_every=cfg.check_every, comm0=comm0(),
-                stop_reduce=stop_reduce, **kw,
-            )
-            iters_used.append(used)
-        else:
-            lam, st, _ = _stage_scan(
-                calculate, lam, gamma, eta, cfg.iters_per_stage, comm0=comm0(), **kw
-            )
+        with telemetry.span("stage", stage=k, gamma=float(gamma)):
+            if cfg.early_stop:
+                lam, st, _, used = _stage_scan_early(
+                    calculate, lam, gamma, eta, cfg.iters_per_stage,
+                    tol_grad=cfg.tol_grad, tol_viol=cfg.tol_viol,
+                    check_every=cfg.check_every, comm0=comm0(),
+                    stop_reduce=stop_reduce, **kw,
+                )
+                iters_used.append(used)
+            else:
+                lam, st, _ = _stage_scan(
+                    calculate, lam, gamma, eta, cfg.iters_per_stage, comm0=comm0(), **kw
+                )
         stats.append(st)
         steps.append(float(eta))
     final, _ = calculate(lam, cfg.gammas[-1], comm0())
@@ -348,5 +354,6 @@ class Maximizer:
             torch.zeros(obj.dual_dim, dtype=torch.float32, device=obj.instance.device)
             if lam0 is None else lam0
         )
-        sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
+        with telemetry.span("power_iteration"):
+            sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
         return _continuation(local_calculate(obj), lam, sigma_sq, cfg)

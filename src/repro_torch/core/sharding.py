@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.distributed as tdist
 
+from repro_torch import telemetry
 from repro_torch.core.maximizer import MaximizerConfig, SolveResult, _continuation
 from repro_torch.core.objective import DualEval, MatchingObjective
 from repro_torch.core.projections import ProjectionMap, UnitSimplexProjection
@@ -215,8 +216,22 @@ class DistributedMaximizer:
                         device=self.local.device)
             if lam0 is None else lam0
         )
-        return _continuation(
-            _make_calculate(self.objective, self.dist, self.local.rhs), lam,
-            self.power_iteration(), self.config, comm0=self._comm0,
-            stop_reduce=all_converged,
-        )
+        cfg = self.config
+        with telemetry.span("dist_solve", shards=self.world,
+                            comm_mode=self.dist.comm_mode):
+            with telemetry.span("power_iteration"):
+                sigma_sq = self.power_iteration()
+            res = _continuation(
+                _make_calculate(self.objective, self.dist, self.local.rhs), lam,
+                sigma_sq, cfg, comm0=self._comm0, stop_reduce=all_converged,
+            )
+        reg = telemetry.get_registry()
+        reg.inc("dist_solves_total", 1, shards=self.world)
+        if res.iters_used is not None:
+            # every process votes once per check_every-chunk actually run, and
+            # budget minus iters_used is the work early stopping skipped
+            checks = sum(-(-u // cfg.check_every) for u in res.iters_used)
+            reg.inc("dist_early_stop_checks_total", checks * self.world)
+            reg.inc("dist_iters_saved_total",
+                    sum(cfg.iters_per_stage - u for u in res.iters_used))
+        return res

@@ -13,17 +13,18 @@ oracle/kernel stack —
 `Maximizer`, the `DistributedMaximizer` and the engines dispatch it
 unchanged through the `MatchingObjective` shim.
 
-The reference's compile also bumps telemetry counters and opens a span
-(`repro.telemetry`); the port has no telemetry yet, so the compile here
-records nothing.
+The compile opens a `formulation_compile` span and bumps the reference's
+counters (`repro_torch.telemetry`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Union
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.maximizer import Maximizer, MaximizerConfig, SolveResult
 from repro_torch.core.objective import MatchingObjective
 from repro_torch.core.projections import ProjectionMap
@@ -98,32 +99,44 @@ class Formulation:
         return sets[0].lower()
 
     def compile(self, instance: BucketedInstance) -> "CompiledFormulation":
-        """Lower the composition onto `instance`.
+        """Lower the composition onto `instance` (span and counters emitted).
 
         Returns a `CompiledFormulation` whose `.instance` carries the spec —
         ready for `Maximizer`, the engines, and (spec-stripped, projection
         passed explicitly) the sharded solve.
         """
-        sets = self.feasible_tuple
-        if not sets:
-            raise ValueError("a Formulation needs at least one FeasibleSet")
-        for s in sets:
-            s.validate()
-        cost_scale, ridge_weight = resolve_terms(self.terms)
-        rhs_scale = resolve_couplings(self.couplings, instance)
-        spec = FormulationSpec(
-            feasible=sets,
-            cost_scale=cost_scale,
-            ridge_weight=ridge_weight,
-            name=self.name,
-        )
-        # validates set-count vs bucket-count and that every set lowers
-        lowered = lower_spec(spec, instance)
-        rhs = instance.rhs if rhs_scale == 1.0 else instance.rhs * rhs_scale
+        reg = telemetry.get_registry()
+        t0 = time.perf_counter()
+        with telemetry.span(
+            "formulation_compile",
+            formulation=self.name,
+            primitives=len(self.feasible_tuple),
+        ):
+            sets = self.feasible_tuple
+            if not sets:
+                raise ValueError("a Formulation needs at least one FeasibleSet")
+            for s in sets:
+                s.validate()
+            cost_scale, ridge_weight = resolve_terms(self.terms)
+            rhs_scale = resolve_couplings(self.couplings, instance)
+            spec = FormulationSpec(
+                feasible=sets,
+                cost_scale=cost_scale,
+                ridge_weight=ridge_weight,
+                name=self.name,
+            )
+            # validates set-count vs bucket-count and that every set lowers
+            lowered = lower_spec(spec, instance)
+            rhs = instance.rhs if rhs_scale == 1.0 else instance.rhs * rhs_scale
+            compiled_inst = dataclasses.replace(instance, rhs=rhs, formulation=spec)
+        dt = time.perf_counter() - t0
+        reg.inc("formulation_compiles_total", 1, formulation=self.name)
+        reg.inc("formulation_primitives_total", len(sets), formulation=self.name)
+        reg.observe("formulation_compile_seconds", dt, formulation=self.name)
         return CompiledFormulation(
             formulation=self,
             spec=spec,
-            instance=dataclasses.replace(instance, rhs=rhs, formulation=spec),
+            instance=compiled_inst,
             projections=lowered.projections,
         )
 

@@ -41,6 +41,7 @@ __all__ = [
     "convert_bucket",
     "dequantize_bucket",
     "pack_single_slab",
+    "pack_source_ids",
     "resolve_slab_dtype",
     "rhs_dtype",
     "slab_dtype_name",
@@ -362,6 +363,19 @@ def pack_single_slab(
         inst, shard_multiple=shard_multiple, min_length=width, dtype=dtype,
         device=device,
     )
+
+
+def pack_source_ids(packed: BucketedInstance) -> list[np.ndarray]:
+    """Per-bucket source id of each slab row (-1 for padded rows), copies.
+
+    Only available for instances produced by `bucketize` (their
+    `pack_info`); the delta-ingest layer (`repro_torch.instances.deltas`)
+    uses it to seed its row-occupancy maps.
+    """
+    info = packed.pack_info
+    if info is None:
+        raise KeyError("pack_source_ids: packing info not found for this instance")
+    return [a.copy() for a in info.source_ids]
 
 
 def unpack_primal(

@@ -1,7 +1,11 @@
 """Card-only tests of the port: the three hand-written kernels (the dual
 oracle, the primal step and the simplex projection) against their plain
 PyTorch versions, the dual oracle as the PDHG engine's fused prox step, and
-small solves through them against the same solves on the CPU.
+small solves through them against the same solves on the CPU; then the
+recurring-solve path: the scatter-plan replay bitwise a fresh upload, a warm
+solve after a replay bitwise the same solve on a fresh upload (no kernel
+plan outlives its instance), and the COO PDHG baseline deterministic on the
+card and ending where the CPU's does.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -455,3 +459,109 @@ def test_fused_pdhg_solve_launches_kernel_and_matches_cpu(cuda):
     on_cpu = pdhg_raw_solve(cpu, torch.zeros(cpu.dual_dim), cfg, normalize=False,
                             fused_oracle=True, pcfg=pcfg)
     assert abs(float(on_card.g) - float(on_cpu.g)) <= 1e-5 * abs(float(on_cpu.g))
+
+
+# -- the recurring-solve path: replay on the card, plans, the COO baseline ----
+
+
+def _cadence_ingestor(dtype):
+    from repro_torch.instances import DeltaIngestor
+
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=60, avg_degree=6.0,
+                                num_families=2, seed=9)
+    base = generate_matching_instance(spec)
+    return base, DeltaIngestor(base, row_headroom=8, dtype=dtype)
+
+
+def _cadence_delta(edges, rng, n_upd=200, n_ins=3, n_del=3):
+    """A mixed delta on `edges`: value and coefficient updates, inserts,
+    deletes and an rhs replacement."""
+    from repro_torch.instances import InstanceDelta
+
+    m, J, I = edges.spec.num_families, edges.spec.num_destinations, edges.spec.num_sources
+    perm = rng.permutation(edges.nnz)
+    upd, dele = perm[:n_upd], perm[n_upd:n_upd + n_del]
+    existing = set((edges.src * J + edges.dst).tolist())
+    ins = []
+    while len(ins) < n_ins:
+        s, d = int(rng.integers(I)), int(rng.integers(J))
+        if s * J + d not in existing:
+            existing.add(s * J + d)
+            ins.append((s, d))
+    return InstanceDelta(
+        insert_src=[s for s, _ in ins], insert_dst=[d for _, d in ins],
+        insert_values=rng.uniform(0.1, 3.0, n_ins), insert_coeff=rng.uniform(0.1, 2.0, (m, n_ins)),
+        delete_src=edges.src[dele], delete_dst=edges.dst[dele],
+        update_src=edges.src[upd], update_dst=edges.dst[upd],
+        update_values=edges.values[upd] * rng.uniform(0.9, 1.1, n_upd),
+        update_coeff=rng.uniform(0.1, 2.0, (m, n_upd)),
+        rhs=edges.rhs * rng.uniform(0.98, 1.02, edges.rhs.size),
+    )
+
+
+def _bitwise_instances(a, b):
+    return all(torch.equal(getattr(x, k).cpu().view(torch.uint8),
+                           getattr(y, k).cpu().view(torch.uint8))
+               for x, y in zip(a.buckets, b.buckets) for k in ("idx", "coeff", "cost", "mask")
+               ) and torch.equal(a.rhs.cpu(), b.rhs.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_replay_on_card_is_bitwise(cuda, dtype):
+    """Three cadences of mixed deltas replayed on the card: each result is
+    bitwise a fresh upload of the host slabs, and the pre-replay instance is
+    unchanged."""
+    from repro_torch.service import apply_scatter_plan, device_put_instance
+
+    base, ing = _cadence_ingestor(dtype)
+    dev = device_put_instance(ing.instance(), cuda)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        rep = ing.apply(_cadence_delta(ing.to_edge_list(), rng))
+        assert rep.in_place
+        before = device_put_instance(dev, cuda)
+        new = apply_scatter_plan(dev, rep.plan)
+        assert _bitwise_instances(dev, before)
+        assert _bitwise_instances(new, device_put_instance(ing.instance(), cuda))
+        dev = new
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_no_plan_survives_a_replay(cuda, fused):
+    """A warm solve on the replayed instance equals, bit for bit, the same
+    warm solve on a fresh upload of the host slabs: no kernel plan,
+    objective or buffer of the cold solve is reused after the replay."""
+    from repro_torch.service import apply_scatter_plan, compiled_solver, device_put_instance
+
+    _, ing = _cadence_ingestor("float32")
+    dev = device_put_instance(ing.instance(), cuda)
+    cold = compiled_solver(MaximizerConfig(iters_per_stage=20), normalize=True,
+                           fused_oracle=fused)(dev, torch.zeros(dev.dual_dim, device=cuda))
+    rep = ing.apply(_cadence_delta(ing.to_edge_list(), np.random.default_rng(5)))
+    warm = compiled_solver(MaximizerConfig(gammas=(0.1, 0.01), iters_per_stage=20),
+                           normalize=True, fused_oracle=fused)
+    replayed = warm(apply_scatter_plan(dev, rep.plan), cold.lam)
+    fresh = warm(device_put_instance(ing.instance(), cuda), cold.lam)
+    assert torch.equal(replayed.lam, fresh.lam)
+    assert all(torch.equal(a, b) for a, b in zip(replayed.x_slabs, fresh.x_slabs))
+
+
+def test_coo_pdhg_on_card_is_deterministic_and_matches_cpu(cuda):
+    """Two COO PDHG solves on the card give equal bits, and the card's
+    solve ends where the CPU's does (x within atol 1e-4, the same
+    convergence)."""
+    from repro_torch.core import PDHGConfig, from_edge_list, solve_pdhg
+
+    inst = generate_matching_instance(MatchingInstanceSpec(
+        num_sources=2000, num_destinations=40, avg_degree=6.0, seed=5))
+    cfg = PDHGConfig(max_iters=600, tol=0.0)
+    a = solve_pdhg(from_edge_list(inst, device=cuda), cfg)
+    b = solve_pdhg(from_edge_list(inst, device=cuda), cfg)
+    assert a.iters == b.iters == 600
+    assert torch.equal(a.x, b.x) and torch.equal(a.y, b.y)
+    small = generate_matching_instance(MatchingInstanceSpec(
+        num_sources=60, num_destinations=10, avg_degree=4.0, seed=5))
+    on_card = solve_pdhg(from_edge_list(small, device=cuda), PDHGConfig(max_iters=40_000))
+    on_cpu = solve_pdhg(from_edge_list(small, device="cpu"), PDHGConfig(max_iters=40_000))
+    assert bool(on_card.converged) and bool(on_cpu.converged)
+    np.testing.assert_allclose(on_card.x.cpu().numpy(), on_cpu.x.numpy(), atol=1e-4)
