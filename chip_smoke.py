@@ -63,7 +63,20 @@ Phases, each printing one line before the last:
      one, drift against the gamma bound, convergence traces and the
      Prometheus text; coo_pdhg: the unstructured COO PDHG baseline at the
      main path's instance (600 iterations, two runs bit-equal) and at
-     tests/test_pdhg.py's size against scipy's HiGHS.
+     tests/test_pdhg.py's size against scipy's HiGHS;
+  7. service_path: `python -m repro_torch.launch.service` in process, 4
+     tenants at the main path's instance, `--fused-oracle --verify`, three
+     cadences solved as one batched group each (kernel 1 over the tenant
+     axis: one launch and one finalize per batched iteration), a checkpoint
+     and a `--resume` run whose first solve is warm; the batched warm stage
+     against 4 solo ones and the batched oracle call against its bound;
+     serve_path: `python -m repro_torch.launch.serve` in process, 2 tenants
+     at that size, 3 pipelined cadences while 2 hammer threads query on
+     their own streams, every batch replayed bitwise (kernel 2 over the
+     requested rows: one launch per query); the query's device time.
+The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
+lanes, each lane bitwise its solo call) and sweep_rows (kernel 2 over row
+lists, bitwise the whole-slab call's rows at every width up to 8192).
 Every path is driven with all launch counters set to 0 just before it and
 read just after; kernel 1's entry in the kernels line gives its launches on
 each path it runs (`launches_by_path`).  The line before the last is the JSON list of kernels; the
@@ -399,7 +412,7 @@ def phase_sweep(device) -> dict:
     return out
 
 
-def sweep_rows(L: int) -> int:
+def rows_at(L: int) -> int:
     return 1000 if L <= 64 else (37 if L <= 512 else 9)
 
 
@@ -448,7 +461,7 @@ def phase_sweep2(device) -> dict:
 
     for L in (1 << k for k in range(14)):
         for m in (1, 2, 3):
-            check(L, sweep_rows(L), m, 64, True)
+            check(L, rows_at(L), m, 64, True)
     for L, n, m, J in ((16, 3000, 1, 70_000), (256, 37, 3, 20_000)):
         if kdo.primal_layout(L, m, J).lam_in_smem:
             fail(f"primal kernel plans lam in shared memory at L={L} m={m} J={J}")
@@ -528,7 +541,7 @@ def phase_sweep3(device) -> dict:
         counts[key.replace("cases", "exact")] += int(exact)
 
     for L in (1 << k for k in range(14)):
-        v32, mask32 = candidates(sweep_rows(L), L)
+        v32, mask32 = candidates(rows_at(L), L)
         for dtype in worst:
             dt = getattr(torch, dtype)
             v, mask = v32.to(device, dt), mask32.to(device, dt)
@@ -537,7 +550,7 @@ def phase_sweep3(device) -> dict:
                     got = ksp.simplex_proj(v, mask, radius, inequality=inequality)
                     check(got, v, mask, radius, inequality, f"L={L}", "cases")
     widths = (1, 2, 4, 8, 16, 32, 64, 512, 8192)
-    slabs = [candidates(3000 if L <= 32 else sweep_rows(L), L) for L in widths]
+    slabs = [candidates(3000 if L <= 32 else rows_at(L), L) for L in widths]
     shapes = [tuple(v.shape) for v, _ in slabs]
     for dtype in worst:
         dt = getattr(torch, dtype)
@@ -567,6 +580,183 @@ def phase_sweep3(device) -> dict:
         fail(f"{len(bad)} simplex-kernel sweep cases out of tolerance or not bitwise: {bad[:8]}")
     if not across:
         fail("simplex kernel's x differs between grid sizes")
+    return out
+
+
+def phase_sweep_batched(device) -> dict:
+    """Kernel 1 over the tenant axis: B stacked instances of one shape in one
+    call against each lane's solo call (its own plan, the same grid), x, A
+    x, c'x and ||x||^2 bitwise, at B = 1, 2, 4, 7, fp32 and bf16, lanes with
+    coefficients of different magnitudes (so their fixed-point shifts
+    differ), a whole call of widths 1-32 with a bucket of 64, both sides of
+    the shared-memory histogram's capacity; then the launches of one
+    batched call: one narrow launch (one more per bucket wider than 32) and
+    one finalize, whatever B."""
+    import numpy as np
+    import torch
+
+    from repro_torch.instances.buckets import Bucket
+    from repro_torch.kernels import dual_oracle as kdo
+
+    rng = np.random.default_rng(11)
+    counts = {"cases": 0, "lanes": 0, "lanes_bitwise": 0}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    bad, shifts_seen, launches = [], set(), []
+
+    def stacked(shapes, B, m, J, dtype):
+        lanes = []
+        for b in range(B):
+            bucket = []
+            for n, L in shapes:
+                bb, _ = random_bucket(rng, n, L, m, J, dtype, device, 3)
+                scale = 4.0 ** (b - 2)  # lane magnitudes differ: shifts differ
+                bucket.append(dataclasses.replace(bb, coeff=(bb.coeff.float() * scale)
+                                                  .to(bb.coeff.dtype)))
+            lanes.append(bucket)
+        st = [Bucket(idx=torch.stack([ln[k].idx for ln in lanes]),
+                     coeff=torch.stack([ln[k].coeff for ln in lanes]),
+                     cost=torch.stack([ln[k].cost for ln in lanes]),
+                     mask=torch.stack([ln[k].mask for ln in lanes]), length=shapes[k][1])
+              for k in range(len(shapes))]
+        return lanes, st
+
+    def check(shapes, B, m, J, dtype, gamma, tag):
+        lanes, st = stacked(shapes, B, m, J, dtype)
+        lam = torch.from_numpy(rng.random((B, m * J)).astype(np.float32)).to(device)
+        plan = kdo.plan_batched(st, J)
+        kdo.launches = kdo.finalize_launches = 0
+        xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma)
+        launches.append({"tag": tag, "B": B, "oracle": kdo.launches,
+                         "finalize": kdo.finalize_launches,
+                         "wide_buckets": sum(L > 32 for _, L in shapes)})
+        for b in range(B):
+            solo = kdo.plan_slabs("dual_oracle", lanes[b], J)
+            sx, sax, slin, ssq = kdo.oracle_call(solo, lam[b].contiguous(), gamma)
+            torch.cuda.synchronize()
+            shifts_seen.add(solo.shift)
+            same = (solo.shift == plan.lane_shifts[b]
+                    and all(torch.equal(x[b], y) for x, y in zip(xs, sx))
+                    and torch.equal(ax[b], sax) and torch.equal(lin[b], slin)
+                    and torch.equal(sq[b], ssq))
+            err = max([float((x[b].float() - y.float()).abs().max()) if y.numel() else 0.0
+                       for x, y in zip(xs, sx)]
+                      + [float((ax[b] - sax).abs().max())])
+            worst[dtype] = max(worst[dtype], err)
+            counts["lanes"] += 1
+            counts["lanes_bitwise"] += int(same)
+            if not same:
+                bad.append(f"{tag} {dtype} B={B} lane {b}: max error {err}")
+        counts["cases"] += 1
+        return plan
+
+    whole = [(300 + 17 * L, L) for L in (1, 2, 4, 8, 16, 32)]
+    boundary = []
+    for B in (1, 2, 4, 7):
+        for dtype in ("float32", "bfloat16"):
+            check(whole, B, 1, 64, dtype, 0.5, "whole call")
+            check(whole + [(40, 64)], B, 2, 64, dtype, 0.05, "whole call + wide")
+            for J in (29_000, 29_100):
+                plan = check([(2000, 8)], B, 1, J, dtype, 1.0, f"L=8 J={J}")
+                if B == 2 and dtype == "float32":
+                    lay = plan.launches[0].layout
+                    boundary.append({"J": J, "hist": ["smem", "global"][lay.hist_mode]})
+    if {row["hist"] for row in boundary} != {"smem", "global"}:
+        fail(f"batched sweep missed a side of the capacity boundary: {boundary}")
+    if len(shifts_seen) < 2:
+        fail("batched sweep lanes all had one fixed-point shift")
+    per_call = all(r["oracle"] == 1 + r["wide_buckets"] and r["finalize"] == 1
+                   for r in launches)
+    out = {"phase": "sweep_batched", **counts, "worst_abs_err": worst,
+           "shifts_seen": sorted(shifts_seen), "capacity_boundary": boundary,
+           "launches_per_call_ok": per_call,
+           "launches_sample": launches[:4]}
+    emit(out)
+    if bad:
+        fail(f"{len(bad)} batched lanes differ from their solo calls: {bad[:6]}")
+    if not per_call:
+        fail(f"a batched call made other launches than one per width class: {launches}")
+    return out
+
+
+def phase_sweep_rows(device) -> dict:
+    """Kernel 2 over a list of requested rows against the full-slab call's
+    rows: every power-of-two width up to 8192, fp32 and bf16 slabs, rows
+    repeated, q = 1, rows at the slab's end and an empty request; x bitwise
+    (fp32 slabs: the full kernel call's rows and the plain step's; bf16: the
+    plain step over the widened slab, which is what the direct projection
+    returns, and the full call's bf16 rows after the storage cast), mask
+    and idx the gathered slab's; one launch for a whole request of widths
+    1-32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dual_primal as kdp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(12)
+    counts = {"cases": 0, "bitwise": 0}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    bad, launches = [], []
+    J = 64
+
+    def requests_for(buckets):
+        reqs = []
+        for t, b in enumerate(buckets):
+            n = b.cost.shape[0]
+            r = rng.integers(0, n, size=min(n, 7))
+            reqs.append((t, np.concatenate([r, r[:2], [n - 1, n - 1]]).astype(np.int64)))
+        reqs.append((0, np.asarray([buckets[0].cost.shape[0] - 1], np.int64)))  # q = 1
+        reqs.append((len(buckets) - 1, np.zeros(0, np.int64)))  # an empty request
+        return reqs
+
+    def check(buckets, lam, gamma, dtype, tag):
+        plan = kdp.plan_rows(buckets, J)
+        reqs = requests_for(buckets)
+        kdp.launches = 0
+        got = kdp.rows_call(plan, lam, gamma, reqs)
+        widths = [buckets[t].cost.shape[-1] for t, r in reqs if r.size]
+        launches.append({"tag": tag, "launches": kdp.launches,
+                         "expected": int(any(L <= 32 for L in widths))
+                         + sum(L > 32 for L in widths)})
+        full = kops.fused_dual_primal_call(buckets, lam, gamma, num_destinations=J)
+        # the direct projection: the plain step over each whole slab widened
+        # to fp32 (on the card a wide row's scan order depends on the slab's
+        # row count, which the row-list kernel keeps)
+        direct = [kref.dual_primal_ref(b.idx, b.coeff.float(), b.cost.float(), b.mask.float(),
+                                       lam, gamma, J) for b in buckets]
+        torch.cuda.synchronize()
+        for (t, r), (x, mask, idx) in zip(reqs, got):
+            rr = torch.from_numpy(r).to(device)
+            b = buckets[t]
+            px = direct[t][rr]
+            ok = (torch.equal(x, px) and torch.equal(mask, b.mask.float()[rr])
+                  and torch.equal(idx, b.idx[rr]) and torch.equal(x.to(full[t].dtype), full[t][rr]))
+            err = float((x - px).abs().max()) if x.numel() else 0.0
+            worst[dtype] = max(worst[dtype], err)
+            counts["cases"] += 1
+            counts["bitwise"] += int(ok)
+            if not ok:
+                bad.append(f"{tag} {dtype} bucket {t} q={r.size}: max error {err}")
+
+    for dtype in ("float32", "bfloat16"):
+        for L in [1 << k for k in range(14)]:
+            b, lam = random_bucket(rng, rows_at(L), L, 1, J, dtype, device, 3)
+            for gamma in (0.01, 1.0):
+                check([b], lam, gamma, dtype, f"L={L}")
+        buckets = [random_bucket(rng, 300 + 17 * L, L, 2, J, dtype, device, 3)[0]
+                   for L in (1, 2, 4, 8, 16, 32)]
+        lam = torch.from_numpy(rng.random(2 * J).astype(np.float32)).to(device)
+        check(buckets, lam, 0.1, dtype, "whole request")
+    one_launch = all(r["launches"] == r["expected"] for r in launches)
+    out = {"phase": "sweep_rows", **counts, "worst_abs_err": worst,
+           "one_launch_per_width_class": one_launch,
+           "whole_request_launches": [r["launches"] for r in launches if r["tag"] == "whole request"]}
+    emit(out)
+    if bad:
+        fail(f"{len(bad)} row-list cases differ: {bad[:6]}")
+    if not one_launch:
+        fail(f"a row-list call made other launches than one per width class: {launches}")
     return out
 
 
@@ -1424,6 +1614,343 @@ def phase_cadence_path(main) -> dict:
     return {"launches": launches, "finalizes": finalizes, "cadences": cadences}
 
 
+def span_seconds(events, names=("ingest", "dispatch", "solve_fence", "absorb")) -> list:
+    """Per `cadence` span of a tracer's events: the seconds of each named
+    child span inside it (host clock)."""
+    cads = sorted((e for e in events if e["name"] == "cadence"), key=lambda e: e["ts"])
+    out = []
+    for c in cads:
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        row = {"cadence_s": c["dur"] / 1e6}
+        for n in names:
+            row[f"{n}_s"] = sum(e["dur"] for e in events
+                                if e["name"] == n and lo <= e["ts"] <= hi) / 1e6
+        out.append(row)
+    return out
+
+
+def phase_service_path(sources: int) -> dict:
+    """`python -m repro_torch.launch.service` in process at the main path's
+    instance: 4 tenants sharing one topology, 1M sources x 10k destinations,
+    degree 8, one family, fp32; `--fused-oracle --iters-per-stage 100`, three
+    cadences (cold, then two of the reference's random deltas: 2% updates, 3
+    inserts, 3 deletes, rhs +-2%) solved as ONE batched group each;
+    `--verify` (warm vs cold rel g < 1e-3 with fewer iterations, batched vs
+    sequential rel g < 1e-3); a checkpoint under build/ after each cadence and
+    a `--resume` run whose first solve is warm.  Held: every oracle launch
+    of the run is one batched call's (launches == finalizes == batched
+    fused calculate calls, every bucket L <= 32).  Then, on the tenants'
+    resident instances: a warm fixed-budget stage (gamma 0.1, 100
+    iterations, each lane's sigma^2) as one batched solve and as 4 solo
+    solves, ms per iteration and each lane's lam rel-L2 between them; the
+    batched oracle call at B = 4 against each lane's solo call (bitwise) and
+    against its HBM bound; and the per-cadence ingest, dispatch (grouping and
+    scatter-plan replays), solve and absorb seconds from the spans."""
+    import shutil
+
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core import MaximizerConfig
+    from repro_torch.core import batched as cb
+    from repro_torch.kernels import dual_oracle as kdo
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import service
+    from repro_torch.service import (
+        BatchedSolvePool, compiled_solver_fixed_sigma, stack_instances, to_solve_result,
+    )
+
+    ckpt = ROOT / "build" / "chip_smoke" / "service_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = ["--sources", str(sources), "--destinations", "10000", "--avg-degree", "8",
+              "--families", "1", "--tenants", "4", "--iters-per-stage", "100",
+              "--fused-oracle", "--checkpoint-dir", str(ckpt), "--device", "cuda"]
+    calls = {"n": 0}
+    calculate = cb.BatchedObjective.calculate
+
+    def counted(self, lam, gamma):
+        calls["n"] += int(self.fused_oracle)
+        return calculate(self, lam, gamma)
+
+    telemetry.set_registry(telemetry.MetricsRegistry())
+    telemetry.set_tracer(telemetry.Tracer())
+    cb.BatchedObjective.calculate = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        run = service.run(service.build_parser().parse_args(
+            common + ["--cadences", "3", "--verify"]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        fused_calls = calls["n"]
+        per_cadence = span_seconds(telemetry.get_tracer().events())
+        reset_counts()
+        calls["n"] = 0
+        resumed = service.run(service.build_parser().parse_args(
+            common + ["--cadences", "1", "--resume"]))
+        resume_counts, resume_calls = read_counts(), calls["n"]
+    finally:
+        cb.BatchedObjective.calculate = calculate
+    if run.code != 0 or not run.verify["ok"]:
+        fail(f"service CLI --verify failed: {run.verify}")
+    reports = [out.reports for _, out, _ in run.cadences]
+    first = resumed.cadences[0][1]
+    if resumed.resumed_from != 2 or not all(r["mode"] == "warm" for r in first.reports.values()):
+        fail(f"the resumed run's first solve is not warm: {resumed.resumed_from}, "
+             f"{[r['mode'] for r in first.reports.values()]}")
+    groups = [out.batched_groups for _, out, _ in run.cadences + resumed.cadences]
+    if not all(len(g) == 1 and len(g[0]) == 4 for g in groups):
+        fail(f"the 4 tenants were not one batched group every cadence: {groups}")
+    if not (counts["dual_oracle"] == counts["dual_oracle_finalize"] == fused_calls > 0
+            and resume_counts["dual_oracle"] == resume_calls > 0
+            and counts["dual_primal"] == counts["simplex_proj"] == 0):
+        fail(f"oracle launches {counts} / {resume_counts} against batched fused calculate "
+             f"calls {fused_calls} / {resume_calls}")
+
+    # batched against solo on the card: one warm fixed-budget stage
+    sched = run.scheduler
+    names = sorted(sched.sessions)
+    insts = [sched.sessions[n].device_instance() for n in names]
+    lam0s = [sched.sessions[n].lam_prev for n in names]
+    sigmas = [sched.sessions[n]._sigma_sq for n in names]
+    cfg = MaximizerConfig(gammas=(0.1,), iters_per_stage=100)
+    pool = BatchedSolvePool(cfg, normalize=True, fused_oracle=True)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t
+
+    pool.solve(insts, lam0s, sigmas)  # first call: plans
+    batch, batch_s = clock(lambda: pool.solve(insts, lam0s, sigmas))
+    solo_fn = compiled_solver_fixed_sigma(cfg, normalize=True, fused_oracle=True)
+    sig_t = [torch.tensor(s, dtype=torch.float32, device="cuda") for s in sigmas]
+    solo, solo_s = clock(lambda: [to_solve_result(solo_fn(i, l, g))
+                                  for i, l, g in zip(insts, lam0s, sig_t)])
+    lane_rel = [rel_l2(b.lam, s.lam) for b, s in zip(batch, solo)]
+    lane_g = [rel_diff(b.g, s.g) for b, s in zip(batch, solo)]
+    if max(lane_g) > 1e-3:
+        fail(f"batched vs solo warm stage: rel g {lane_g}")
+
+    # the batched oracle call at B = 4: bitwise each lane's solo call, timed
+    stacked = cb.normalize_lanes(stack_instances(insts))
+    obj = cb.BatchedObjective(stacked, fused_oracle=True)
+    plan = obj.kernel_plan()
+    lam = torch.stack([b.lam for b in batch]).contiguous()
+    J, m = stacked.num_destinations, stacked.num_families
+    xs, ax, lin, sq = kdo.oracle_call(plan, lam, 0.1)
+    exact = True
+    for b, o in enumerate(obj.lanes):
+        sp = o.kernel_plan("dual_oracle")
+        sx, sax, slin, ssq = kdo.oracle_call(sp, lam[b].contiguous(), 0.1)
+        exact &= (sp.shift == plan.lane_shifts[b] and torch.equal(ax[b], sax)
+                  and torch.equal(lin[b], slin) and torch.equal(sq[b], ssq)
+                  and all(torch.equal(x[b], y) for x, y in zip(xs, sx)))
+    torch.cuda.synchronize()
+    if not exact:
+        fail("the batched oracle call at the service path's shapes differs from the solo calls")
+    B = len(insts)
+    slots = sum(bk.idx[0].numel() for bk in stacked.buckets)
+    call_bytes = B * (slots * kops.oracle_slab_slot_bytes(m, stacked.slab_dtype)
+                      + 4 * m * J * 2 + 8)
+    ops = B * sum(slab_ops(o, m) for o in obj.lanes[0].instance.buckets)
+    solo_plan = obj.lanes[0].kernel_plan("dual_oracle")
+    batched_call = {
+        "B": B, "launches_per_call": len(plan.launches), "lane_shifts": list(plan.lane_shifts),
+        "bitwise_each_lane_solo": exact,
+        "kernel_ms": event_ms(lambda: kdo.oracle_call(plan, lam, 0.1), 30),
+        "device_ms": device_ms(lambda: kdo.oracle_call(plan, lam, 0.1), 10,
+                               r"oracle_(narrow|wide|finalize)"),
+        "solo_call_ms_x4": 4 * event_ms(lambda: kdo.oracle_call(
+            solo_plan, lam[0].contiguous(), 0.1), 30),
+        "plain_ms": event_ms(lambda: kref.dual_oracle_batched_ref(stacked.buckets, lam, 0.1, J),
+                             3, warmup=1),
+        "bytes": call_bytes, "fp32_ops": ops, **bound_of(call_bytes, ops),
+    }
+    out = {
+        "phase": "service_path", "sources": sources, "tenants": B, "run_s": run_s,
+        "verify": run.verify, "resumed_from": resumed.resumed_from,
+        "resumed_modes": sorted({r["mode"] for r in first.reports.values()}),
+        "batched_groups": groups, "launch_counts": counts,
+        "batched_fused_calculate_calls": fused_calls,
+        "resume_launch_counts": resume_counts, "resume_batched_fused_calculate_calls": resume_calls,
+        "iters_used": [[r[n]["iters_used"] for n in names] for r in reports],
+        "upload": [[r[n]["upload_mode"] for n in names] for r in reports],
+        "per_cadence_s": per_cadence,
+        "warm_stage": {"iterations": cfg.iters_per_stage, "batched_s": batch_s,
+                       "solo_x4_s": solo_s,
+                       "batched_ms_per_iter": batch_s / cfg.iters_per_stage * 1e3,
+                       "solo_x4_ms_per_iter": solo_s / cfg.iters_per_stage * 1e3,
+                       "lane_rel_l2_lam_batched_vs_solo": lane_rel,
+                       "lane_rel_g_batched_vs_solo": lane_g},
+        "batched_call": batched_call,
+        "profile": profile_window(lambda: cb._run(cb._agd_body(
+            obj.calculate, 0.1, torch.full((B,), 1e-3, device="cuda"), acceleration=True,
+            adaptive_restart=True), cb._init_carry(lam), 20), "service_batched", 20),
+    }
+    emit(out)
+    return {"launches": counts["dual_oracle"] + resume_counts["dual_oracle"],
+            "finalizes": counts["dual_oracle_finalize"] + resume_counts["dual_oracle_finalize"],
+            "batched_call": batched_call, "out": out}
+
+
+def phase_serve_path(sources: int) -> dict:
+    """`python -m repro_torch.launch.serve` in process: 2 tenants (seeds s,
+    s+1) at the main path's size, `--iters-per-stage 50` (cut from the CLI's
+    100 to keep the smoke short), a cold cadence, then 3 pipelined cost-only
+    cadences (2% of the edges) while 2 hammer threads, each on its own CUDA
+    stream, query batches of 128 users; `--verify`: every served batch
+    bitwise `direct_allocations` of the generation it reports (0 mismatches
+    required), and kernel 2's launches: one per query (plus one per bucket
+    wider than 32 a query touches).  Then the row-list call's device time
+    per query from the profiler against its bound, its host time, and the
+    overlap share of the pipelined cadences."""
+    import numpy as np
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.kernels import dual_primal as kdp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+
+    argv = ["--sources", str(sources), "--destinations", "10000", "--avg-degree", "8",
+            "--tenants", "2", "--cadences", "3", "--batch", "128", "--hammer-threads", "2",
+            "--iters-per-stage", "50", "--verify", "--device", "cuda"]
+    telemetry.set_registry(telemetry.MetricsRegistry())
+    telemetry.set_tracer(telemetry.Tracer())
+    reset_counts()
+    run = serve.run(serve.build_parser().parse_args(argv))
+    counts = read_counts()
+    store = run.store
+    expected = 0
+    for r in run.results:
+        widths = [store.get(r.tenant, r.generation).instance.buckets[ba.bucket].length
+                  for ba in r.slabs]
+        expected += int(any(L <= 32 for L in widths)) + sum(L > 32 for L in widths)
+    # the verify replays call no kernel 2 (the direct projection is unfused)
+    if run.failures != 0 or counts["dual_primal"] != expected or not run.results:
+        fail(f"serve path: {run.failures} mismatched batches, kernel 2 launches "
+             f"{counts['dual_primal']} against {expected} expected for "
+             f"{len(run.results)} queries")
+    by_tenant = {}
+    for r in run.results:
+        by_tenant.setdefault(r.tenant, []).append(r)
+    lat = {n: {"batches": len(rs),
+               "p50_ms": float(np.percentile([r.latency_seconds for r in rs], 50) * 1e3),
+               "p99_ms": float(np.percentile([r.latency_seconds for r in rs], 99) * 1e3),
+               "generations": sorted({r.generation for r in rs})}
+           for n, rs in sorted(by_tenant.items())}
+    users = sum(r.num_users for r in run.results)
+    reg = telemetry.get_registry()
+    overlap_ingest = reg.counter_total("scheduler_overlap_ingest_seconds_total")
+    window = reg.counter_total("scheduler_solve_window_seconds_total")
+
+    # one query's row-list call alone: device time against its bound
+    snap = store.snapshot("t0")
+    live = np.flatnonzero(snap.deg > 0)
+    batch = np.random.default_rng(5).choice(live, size=128)
+    b_of = snap.bucket_of[batch]
+    reqs = [(int(t), snap.row_of[batch[b_of == t]]) for t in np.unique(b_of)]
+    route = snap.query_route()
+    inst = snap.instance
+    call = lambda: kops.fused_dual_primal_rows(  # noqa: E731
+        inst.buckets, reqs, snap.lam_eff, snap.gamma, num_destinations=inst.num_destinations,
+        plan=route["plan"])
+    slots = sum(len(r) * inst.buckets[t].length for t, r in reqs)
+    byts = slots * kops.oracle_slab_slot_bytes(1, inst.slab_dtype) + 8 * len(batch) \
+        + 4 * inst.num_destinations
+    ops = sum(len(r) * inst.buckets[t].length for t, r in reqs) * 40
+    query = {
+        "q": int(len(batch)), "buckets": len(reqs), "slots": slots,
+        "device_ms": device_ms(call, 50, r"rows_(narrow|wide)"),
+        "kernel_event_ms": event_ms(call, 50),
+        "host_ms": host_ms(call, 200),
+        "query_host_ms": host_ms(lambda: store.query_snapshot(snap, batch), 100),
+        **bound_of(byts, ops), "bytes": byts,
+    }
+    out = {
+        "phase": "serve_path", "sources": sources, "tenants": 2, "wall_s": run.wall_seconds,
+        "contention": hammer_contention(run, batch),
+        "batches": len(run.results), "users": users,
+        "users_per_s": users / max(run.wall_seconds, 1e-9), "latency": lat,
+        "published_generations": [{n: o.reports[n]["published_generation"] for n in o.reports}
+                                  for o in run.outs],
+        "verify_mismatches": run.failures, "kernel2_launches": counts["dual_primal"],
+        "kernel2_launches_expected": expected, "launch_counts": counts,
+        "overlap_ingest_s": overlap_ingest, "solve_window_s": window,
+        "overlap_share": overlap_ingest / max(window, 1e-9),
+        "per_cadence_s": span_seconds(telemetry.get_tracer().events(),
+                                      ("dispatch", "overlap_ingest", "solve_fence", "absorb")),
+        "query": query,
+    }
+    emit(out)
+    return {"launches": counts["dual_primal"], "query": query, "out": out}
+
+
+def hammer_contention(run, batch) -> dict:
+    """ms per iteration of one warm AGD stage of tenant t0 (its solo solve,
+    unfused, as the serve CLI's scheduler runs it; 20 iterations) alone,
+    and while two threads query the store back to back on their own
+    streams, at three GIL switch intervals: how much the query threads slow
+    the solver thread's host loop."""
+    import sys
+    import threading
+
+    import torch
+
+    from repro_torch.core import MaximizerConfig
+    from repro_torch.service import compiled_solver
+
+    store = run.store
+    sess = run.scheduler.sessions["t0"]
+    inst, lam0 = sess.device_instance(), sess.lam_prev
+    iters = 20
+    solve = compiled_solver(MaximizerConfig(gammas=(0.1,), iters_per_stage=iters),
+                            normalize=True)
+
+    def solve_ms():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve(inst, lam0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / iters * 1e3
+
+    solve_ms()
+    out = {"iterations": iters, "alone_ms_per_iter": solve_ms()}
+    switch = sys.getswitchinterval()
+    for interval in (5e-3, 2e-4, 2e-5):
+        stop, counts = threading.Event(), []
+
+        def hammer():
+            stream, n = torch.cuda.Stream(), 0
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    store.query("t0", batch)
+                    n += 1
+            counts.append(n)
+
+        sys.setswitchinterval(interval)
+        threads = [threading.Thread(target=hammer, daemon=True) for _ in range(2)]
+        try:
+            for t in threads:
+                t.start()
+            t0 = time.perf_counter()
+            ms = solve_ms()
+            wall = time.perf_counter() - t0
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            sys.setswitchinterval(switch)
+        out[f"interval_{interval:g}"] = {"ms_per_iter": ms,
+                                         "queries_per_s": sum(counts) / max(wall, 1e-9)}
+    return out
+
+
 def phase_coo_pdhg(main, pdhg) -> dict:
     """The unstructured COO PDHG baseline (the paper's comparator): at the
     main path's instance for a fixed budget of 600 iterations, checks every
@@ -1907,6 +2434,8 @@ def main() -> int:
     sweep = timed(phase_sweep, device)
     sweep2 = timed(phase_sweep2, device)
     sweep3 = timed(phase_sweep3, device)
+    sweep_batched = timed(phase_sweep_batched, device)
+    sweep_rows = timed(phase_sweep_rows, device)
     if args.sweeps_only:
         return 0
 
@@ -1922,6 +2451,8 @@ def main() -> int:
     times23 = timed(phase_times_primal_simplex, main_path)
     cadence = timed(phase_cadence_path, main_path)
     timed(phase_coo_pdhg, main_path, pdhg)
+    service = timed(phase_service_path, args.sources)
+    serve_p = timed(phase_serve_path, args.sources)
 
     def worst(sw):
         return max(v if isinstance(v, float) else max(v.values())
@@ -1940,11 +2471,15 @@ def main() -> int:
     emit({"kernels": [
         entry("dual_oracle", "src/repro/kernels/dual_oracle.py:87",
               main_path["summary"]["kernel_launches"],
-              max(worst(sweep), times["call"]["main_path_x_max_abs_err"],
+              max(worst(sweep), worst(sweep_batched), times["call"]["main_path_x_max_abs_err"],
                   pdhg_step["x_max_abs_err"]), times["call"],
               launches_by_path={"main": main_counts["dual_oracle"],
                                 "pdhg": pdhg_counts["dual_oracle"],
-                                "cadence": cadence["launches"]},
+                                "cadence": cadence["launches"],
+                                "service": service["launches"]},
+              batched={k: service["batched_call"][k] for k in (
+                  "B", "kernel_ms", "device_ms", "solo_call_ms_x4", "plain_ms", "bound_ms",
+                  "bound_by")},
               pdhg_step={k: pdhg_step[k] for k in ("kernel_ms", "device_ms", "plain_ms",
                                                    "bound_ms", "bound_by")}),
         entry("dual_oracle_finalize", "src/repro/kernels/ops.py:317",
@@ -1952,11 +2487,16 @@ def main() -> int:
               times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle",
               launches_by_path={"main": main_counts["dual_oracle_finalize"],
                                 "pdhg": pdhg_counts["dual_oracle_finalize"],
-                                "cadence": cadence["finalizes"]}),
+                                "cadence": cadence["finalizes"],
+                                "service": service["finalizes"]}),
         entry("dual_primal", "src/repro/kernels/dual_primal.py:100",
               path2["launch_counts"]["dual_primal"],
-              max(worst(sweep2), times23["primal"]["main_path_max_abs_err"]),
-              times23["primal"]),
+              max(worst(sweep2), worst(sweep_rows), times23["primal"]["main_path_max_abs_err"]),
+              times23["primal"],
+              launches_by_path={"path2": path2["launch_counts"]["dual_primal"],
+                                "serve": serve_p["launches"]},
+              rows={k: serve_p["query"][k] for k in (
+                  "q", "device_ms", "kernel_event_ms", "host_ms", "bound_ms", "bound_by")}),
         entry("simplex_proj", "src/repro/kernels/simplex_proj.py:97",
               path3["launch_counts"]["simplex_proj"],
               max(worst(sweep3), times23["simplex"]["main_path_max_abs_err"]),

@@ -11,7 +11,10 @@ instance cannot `unpack_primal`.  An attached formulation does travel: its
 spec is rebuilt from the port's classes of the same names
 (`formulation_from_reference`).  The recurring-solve pieces travel too: an
 `InstanceDelta` (host numpy in both packages), a `ScatterPlan` (the port's
-holds CPU tensors) and the COO LP of the PDHG baseline.
+holds CPU tensors) and the COO LP of the PDHG baseline.  So do the service's
+pieces: a published `DualSnapshot` (its duals, instance and maps) and a
+`ServiceConfig`.  Tenant state crosses through the checkpoint format, which
+both packages share (`repro_torch.checkpoint`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ __all__ = [
     "instance_from_reference",
     "lam_from_numpy",
     "scatter_plan_from_reference",
+    "service_config_from_reference",
+    "snapshot_from_reference",
     "tensor_from_numpy",
 ]
 
@@ -133,4 +138,46 @@ def coolp_from_reference(lp, device="cuda") -> COOLP:
     return COOLP(
         rows=t(lp.rows), cols=t(lp.cols), vals=t(lp.vals), c=t(lp.c), q=t(lp.q),
         u=t(lp.u), num_rows=int(lp.num_rows), num_cols=int(lp.num_cols),
+    )
+
+
+def _config_from_reference(cfg):
+    """The port's MaximizerConfig with the reference config's fields (those
+    the port has: the reference's `record_every` has no counterpart)."""
+    from repro_torch.core.maximizer import MaximizerConfig
+
+    names = {f.name for f in dataclasses.fields(MaximizerConfig)}
+    return MaximizerConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                              if f.name in names})
+
+
+def service_config_from_reference(cfg):
+    """The port's ServiceConfig with the reference's knobs, field for field
+    (the cold solver config field for field too)."""
+    from repro_torch.service.session import ServiceConfig
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["cold"] = _config_from_reference(cfg.cold)
+    return ServiceConfig(**kw)
+
+
+def snapshot_from_reference(snap, device="cuda"):
+    """The port's DualSnapshot holding the reference snapshot's published
+    duals, instance (and formulation) and occupancy maps."""
+    from repro_torch.serving.duals import DualSnapshot
+
+    dev = resolve_device(device)
+    lam_eff = lam_from_numpy(snap.lam_eff, dev)
+    instance = instance_from_reference(snap.instance, dev)
+    ready = None
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+    return DualSnapshot(
+        tenant=str(snap.tenant), generation=int(snap.generation),
+        cadence=int(snap.cadence), gamma=float(snap.gamma), lam_eff=lam_eff,
+        instance=instance,
+        bucket_of=np.asarray(snap.bucket_of, np.int64).copy(),
+        row_of=np.asarray(snap.row_of, np.int64).copy(),
+        deg=np.asarray(snap.deg, np.int64).copy(), ready=ready,
     )

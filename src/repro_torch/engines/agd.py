@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.batched import BatchedObjective, batched_continuation, normalize_lanes
 from repro_torch.core.maximizer import (
     MaximizerConfig,
     StageStats,
@@ -23,7 +24,7 @@ from repro_torch.core.objective import MatchingObjective, normalize_rows_traced
 from repro_torch.engines.base import RawSolve
 from repro_torch.instances.buckets import BucketedInstance
 
-__all__ = ["AGDEngine", "AGD_ENGINE", "agd_raw_solve"]
+__all__ = ["AGDEngine", "AGD_ENGINE", "agd_raw_solve", "agd_raw_solve_batched"]
 
 
 def agd_raw_solve(
@@ -85,6 +86,31 @@ def agd_raw_solve(
         # AGD's momentum resets happen inside the stage loop and are not
         # counted; the restart count is a PDHG concept
         restarts=torch.zeros((), dtype=torch.int32),
+    )
+
+
+def agd_raw_solve_batched(
+    stacked: BucketedInstance,
+    lam0: torch.Tensor,
+    cfg: MaximizerConfig,
+    normalize: bool,
+    fused_oracle: bool = False,
+    sigma_sq: Optional[torch.Tensor] = None,
+) -> RawSolve:
+    """The continuation solve of every lane of a stacked instance from
+    `lam0` [B, m*J], in one AGD loop over the lanes (`core.batched`): every
+    `RawSolve` field gains the lane dimension.  ``sigma_sq`` [B] skips the
+    power iteration of every lane."""
+    if normalize:
+        stacked = normalize_lanes(stacked)
+    obj = BatchedObjective(stacked, fused_oracle=fused_oracle)
+    if sigma_sq is None:
+        sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
+    lam, final, stats, etas, iters = batched_continuation(obj, lam0, cfg, sigma_sq)
+    return RawSolve(
+        lam=lam, x_slabs=final.x_slabs, g=final.g, stats=stats, sigma_sq=sigma_sq,
+        etas=etas, iters=iters,
+        restarts=torch.zeros(lam.shape[0], dtype=torch.int32, device=lam.device),
     )
 
 

@@ -78,6 +78,13 @@ __all__ = [
 ]
 
 
+def _slots_of(d: np.ndarray) -> np.ndarray:
+    """Slot offsets 0..d_i-1 of every row, concatenated (rows of d_i slots):
+    `np.concatenate([np.arange(k) for k in d])` without a Python loop."""
+    d = np.asarray(d, np.int64)
+    return np.arange(int(d.sum()), dtype=np.int64) - np.repeat(np.cumsum(d) - d, d)
+
+
 def _as_1d(a, dtype) -> np.ndarray:
     out = np.asarray([] if a is None else a, dtype=dtype)
     return out.reshape(-1)
@@ -507,7 +514,7 @@ class DeltaIngestor:
             if rows.size == 0:
                 continue
             r = np.repeat(rows, d)
-            o = np.concatenate([np.arange(k) for k in d])
+            o = _slots_of(d)
             per_bucket.append((t, r, o))
             keys.append(
                 np.repeat(sid[rows], d) * J + b.idx[r, o].astype(np.int64)
@@ -550,7 +557,7 @@ class DeltaIngestor:
             if rows.size == 0:
                 continue
             r = np.repeat(rows, d)
-            o = np.concatenate([np.arange(k) for k in d])
+            o = _slots_of(d)
             srcs.append(np.repeat(sid[rows], d))
             dsts.append(b.idx[r, o].astype(np.int64))
             vals.append(-dec(b.cost[r, o]).astype(np.float64))

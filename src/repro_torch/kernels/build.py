@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # kernels are first called from several threads
 build_logs: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its build
 
 
@@ -83,6 +85,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel `name`, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_library(name)))
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = _loaded[name] = ctypes.CDLL(str(_library(name)))
     return lib

@@ -19,6 +19,15 @@
 // (the main path has only those), one `oracle_wide` per wider bucket, then
 // one `oracle_finalize`.
 //
+// The tenant axis (the batched multi-tenant solve): a call over B stacked
+// instances of one shape is the same launches with gridDim.y = B.  Block
+// (x, b) does what block x of lane b's own call does, on lane b's slabs,
+// lam, int64 row, partial rows and fixed-point shift (each lane has its own:
+// the shift depends on the lane's coefficients), and the finalize runs one
+// block row per lane.  Each lane's x, A x, c'x and ||x||^2 are therefore
+// bitwise its solo call's at the same grid.x, and a batched call is still
+// one narrow launch (plus one per wider bucket) and one finalize, whatever B.
+//
 // A x in fixed point, so its sums are exact and order-free.  Each nonzero
 // contribution coeff_k * x (fp32, rounded as the plain version rounds it)
 // is scaled by 2^shift (exact), rounded to the nearest int64 (ties to even)
@@ -63,6 +72,14 @@ namespace {
 // global), lam (when staged), the reduction slots, then for wide rows two
 // fp32 rows per warp; each part 16-byte aligned (kernels/dual_oracle.py
 // smem_bytes mirrors it).
+// This block's lane's int64 row and 2^shift.
+__device__ __forceinline__ unsigned long long* lane_acc(const Launch& p) {
+  return p.acc + static_cast<long long>(blockIdx.y) * p.m * p.J;
+}
+__device__ __forceinline__ float lane_qscale(const Launch& p) {
+  return p.lane_q != nullptr ? p.lane_q[blockIdx.y] : p.qscale;
+}
+
 struct OracleBlock {
   unsigned long long* hist;  // shared histogram, or null (kHistGlobal)
   const float* lam;          // shared copy or the global vector
@@ -82,9 +99,9 @@ __device__ __forceinline__ OracleBlock oracle_prologue(const Launch& p, unsigned
     for (int e = threadIdx.x; e < mJ; e += blockDim.x) blk.hist[e] = 0ull;
     at += align16(8 * static_cast<size_t>(mJ));
   }
-  blk.lam = p.lam;
+  blk.lam = lane_lam(p);
   if (p.lam_in_smem) {
-    stage_lam(p.lam, mJ, reinterpret_cast<float*>(at));
+    stage_lam(blk.lam, mJ, reinterpret_cast<float*>(at));
     blk.lam = reinterpret_cast<const float*>(at);
     at += align16(4 * static_cast<size_t>(mJ));
   }
@@ -103,8 +120,8 @@ struct OracleSink {
   float qscale;
   float lin, sq;
 
-  template <int M>
-  __device__ __forceinline__ void operator()(const Slot<M>& s, float x) {
+  template <int M, typename TO>
+  __device__ __forceinline__ void operator()(const Slot<M>& s, float x, TO*) {
     lin += s.cost * x;
     sq += x * x;
     if (x == 0.f) return;  // zeros add nothing
@@ -144,15 +161,18 @@ __device__ __forceinline__ void oracle_epilogue(const Launch& p, const OracleBlo
       a += blk.red[2 * w];
       b += blk.red[2 * w + 1];
     }
-    float* out = p.scal + 2 * (static_cast<long long>(p.scal_row) + blockIdx.x);
+    const long long row =
+        static_cast<long long>(blockIdx.y) * p.scal_lane_rows + p.scal_row + blockIdx.x;
+    float* out = p.scal + 2 * row;
     out[0] = a;
     out[1] = b;
   }
   const int mJ = p.m * p.J;
   if (p.hist_mode == kHistShared) {
+    unsigned long long* acc = lane_acc(p);
     for (int e = threadIdx.x; e < mJ; e += blockDim.x) {
       const unsigned long long v = blk.hist[e];
-      if (v != 0ull) atomicAdd(p.acc + e, v);
+      if (v != 0ull) atomicAdd(acc + e, v);
     }
   }
 }
@@ -163,8 +183,8 @@ __global__ void __launch_bounds__(narrow_threads<M>(), 1)
 oracle_narrow(const __grid_constant__ Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const OracleBlock blk = oracle_prologue(p, smem);
-  OracleSink sink{blk.hist, p.acc, p.m, p.J, p.qscale, 0.f, 0.f};
-  walk_narrow<T, M>(p, blk.lam, sink);
+  OracleSink sink{blk.hist, lane_acc(p), p.m, p.J, lane_qscale(p), 0.f, 0.f};
+  walk_narrow<T, typename OutType<T>::type, M, false>(p, blk.lam, sink);
   oracle_epilogue(p, blk, sink.lin, sink.sq);
 }
 
@@ -174,16 +194,23 @@ __global__ void __launch_bounds__(kWideWarps * 32)
 oracle_wide(const __grid_constant__ Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const OracleBlock blk = oracle_prologue(p, smem);
-  OracleSink sink{blk.hist, p.acc, p.m, p.J, p.qscale, 0.f, 0.f};
-  walk_wide<T, M>(p, blk.lam, blk.rows, sink);
+  OracleSink sink{blk.hist, lane_acc(p), p.m, p.J, lane_qscale(p), 0.f, 0.f};
+  walk_wide<T, typename OutType<T>::type, M, false>(p, blk.lam, blk.rows, sink);
   oracle_epilogue(p, blk, sink.lin, sink.sq);
 }
 
 // A x [m*J] = fp32(the int64 row) * 2^-shift; (c'x, ||x||^2) = the
-// blocks' partials summed by one warp in a fixed order.
+// blocks' partials summed by one warp in a fixed order.  Block row y is
+// lane y of a batched call (its row, partials, outputs and 2^-shift).
 __global__ void __launch_bounds__(256)
 oracle_finalize(const unsigned long long* acc, int mJ, const float* scal, int scal_rows,
-                float inv_q, float* ax, float* lin_sq) {
+                float inv_q, const float* lane_inv_q, float* ax, float* lin_sq) {
+  const long long lane = blockIdx.y;
+  acc += lane * mJ;
+  scal += 2 * lane * scal_rows;
+  ax += lane * mJ;
+  lin_sq += 2 * lane;
+  if (lane_inv_q != nullptr) inv_q = lane_inv_q[lane];
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < mJ; e += gridDim.x * blockDim.x) {
     ax[e] = __fmul_rn(__ll2float_rn(static_cast<long long>(acc[e])), inv_q);
   }
@@ -211,9 +238,8 @@ struct RunOracle {
   cudaStream_t stream;
   template <typename T, int M>
   cudaError_t run() {
-    return shape.wide
-        ? launch_kernel<oracle_wide<T, M>>(*p, shape.grid, shape.threads, shape.smem, stream)
-        : launch_kernel<oracle_narrow<T, M>>(*p, shape.grid, shape.threads, shape.smem, stream);
+    return shape.wide ? launch_kernel<oracle_wide<T, M>>(*p, shape, stream)
+                      : launch_kernel<oracle_narrow<T, M>>(*p, shape, stream);
   }
 };
 
@@ -246,15 +272,20 @@ extern "C" int dual_oracle_info(int dtype, int M, int wide, int threads, long lo
 // (kSlabWords int64 each, x pointers in `x`), then the finalize, which
 // writes A x [m*J] to `ax` and (c'x, ||x||^2) to `lin_sq`.  `acc` is the
 // int64 row of m*J, zeroed by the caller; `scal` holds `scal_rows` fp32
-// pairs, one per block.  Launches on `stream` without synchronising;
-// returns the first CUDA error (0 on success).
+// pairs, one per block.  With `lanes` > 1 every one of these is per lane
+// (lane b's at b times its size; the slabs are stacked), and `lane_q` holds
+// 2^shift then 2^-shift of each lane ([2, lanes] fp32 on the card) in
+// place of `shift`.  Launches on `stream` without synchronising; returns
+// the first CUDA error (0 on success).
 extern "C" int dual_oracle_run(const long long* slabs, int nslabs, const long long* launches,
                                int nlaunch, int dtype, int M, int m, int J, const void* lam,
                                const long long* x, void* acc, void* scal, int scal_rows,
                                void* ax, void* lin_sq, float ginv, float radius,
-                               int inequality, int shift, int finalize_grid, void* stream) {
+                               int inequality, int shift, int finalize_grid, int lanes,
+                               const void* lane_q, void* stream) {
   if (!valid_families(M, m) || J < 1 || nlaunch < 0 || scal_rows < 0 ||
-      shift < -100 || shift > 100 || finalize_grid < 1) {
+      shift < -100 || shift > 100 || finalize_grid < 1 || lanes < 1 || lanes > 65535 ||
+      (lanes > 1 && lane_q == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -268,6 +299,10 @@ extern "C" int dual_oracle_run(const long long* slabs, int nslabs, const long lo
   p.acc = static_cast<unsigned long long*>(acc);
   p.scal = static_cast<float*>(scal);
   p.qscale = std::ldexp(1.f, shift);
+  const float* lq = static_cast<const float*>(lane_q);
+  p.lane_q = lq;
+  p.scal_lane_rows = scal_rows;
+  p.plane = 0;
   for (int l = 0; l < nlaunch; ++l) {
     RunOracle f{&p, {}, st};
     if (!decode_launch(launches + static_cast<long long>(l) * kLaunchWords, slabs, nslabs, x,
@@ -275,13 +310,18 @@ extern "C" int dual_oracle_run(const long long* slabs, int nslabs, const long lo
         p.scal_row + f.shape.grid > scal_rows) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    f.shape.lanes = lanes;
+    for (int i = 0; i < p.nslab; ++i) {
+      if (p.slab[i].rows != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    }
     const cudaError_t err = visit(dtype, M, f);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  oracle_finalize<<<finalize_grid, 256, 0, st>>>(
+  oracle_finalize<<<dim3(finalize_grid, lanes), 256, 0, st>>>(
       static_cast<const unsigned long long*>(acc), m * J,
       static_cast<const float*>(scal), scal_rows, std::ldexp(1.f, -shift),
-      static_cast<float*>(ax), static_cast<float*>(lin_sq));
+      lq == nullptr ? nullptr : lq + lanes, static_cast<float*>(ax),
+      static_cast<float*>(lin_sq));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,7 +335,7 @@ extern "C" int dual_oracle_finalize(const void* acc, int mJ, const void* scal, i
   }
   oracle_finalize<<<finalize_grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned long long*>(acc), mJ,
-      static_cast<const float*>(scal), scal_rows, std::ldexp(1.f, -shift),
+      static_cast<const float*>(scal), scal_rows, std::ldexp(1.f, -shift), nullptr,
       static_cast<float*>(ax), static_cast<float*>(lin_sq));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,15 @@
 // Launches per call: one `primal_narrow` for every bucket of width <= 32
 // (the main path has only those) and one `primal_wide` per wider bucket.
 //
+// The row-list form (the serving query): `rows_narrow` / `rows_wide` compute
+// x for a list of requested rows of each bucket only, output row r from
+// source row rows[r], so a query reads O(q * L) slots, never the slab.  One
+// launch covers every requested bucket of width <= 32 (one more per wider
+// bucket).  x is always written in fp32 (a bf16 slab's x is the fp32 value
+// before the storage cast, which is what the unfused direct projection over
+// the widened slab returns), followed by the slots' mask (fp32) and idx
+// (int32), each a plane of the one output buffer.
+//
 // What bounds it: HBM bytes.  Each slab slot reads 4 B of idx and m + 2
 // slab words and writes x: 20 B at fp32 and m = 1, for a few dozen fp32
 // operations.  The slab is read once and x written once; a row of L <= 32 is
@@ -34,8 +43,8 @@ namespace {
 // Stages lam at the start of shared memory when the plan says so; returns
 // where the kernel reads lam.
 __device__ __forceinline__ const float* lam_view(const Launch& p, float* smem) {
-  if (!p.lam_in_smem) return p.lam;
-  stage_lam(p.lam, p.m * p.J, smem);
+  if (!p.lam_in_smem) return lane_lam(p);
+  stage_lam(lane_lam(p), p.m * p.J, smem);
   __syncthreads();
   return smem;
 }
@@ -46,7 +55,7 @@ __global__ void __launch_bounds__(narrow_threads<M>(), 1)
 primal_narrow(const __grid_constant__ Launch p) {
   extern __shared__ __align__(16) float smem[];
   NoSink sink;
-  walk_narrow<T, M>(p, lam_view(p, smem), sink);
+  walk_narrow<T, typename OutType<T>::type, M, false>(p, lam_view(p, smem), sink);
 }
 
 // One bucket of width 64 <= L <= 8192: a warp per row, its two scratch rows
@@ -58,7 +67,27 @@ primal_wide(const __grid_constant__ Launch p) {
   const float* lam = lam_view(p, smem);
   const int lam_floats = p.lam_in_smem ? ((p.m * p.J + 3) & ~3) : 0;
   NoSink sink;
-  walk_wide<T, M>(p, lam, smem + lam_floats, sink);
+  walk_wide<T, typename OutType<T>::type, M, false>(p, lam, smem + lam_floats, sink);
+}
+
+// The requested rows of every bucket of width L <= 32, in one launch.
+template <typename T, int M>
+__global__ void __launch_bounds__(narrow_threads<M>(), 1)
+rows_narrow(const __grid_constant__ Launch p) {
+  extern __shared__ __align__(16) float smem[];
+  RowsSink sink{p.plane};
+  walk_narrow<T, float, M, true>(p, lam_view(p, smem), sink);
+}
+
+// The requested rows of one bucket of width 64 <= L <= 8192.
+template <typename T, int M>
+__global__ void __launch_bounds__(kWideWarps * 32)
+rows_wide(const __grid_constant__ Launch p) {
+  extern __shared__ __align__(16) float smem[];
+  const float* lam = lam_view(p, smem);
+  const int lam_floats = p.lam_in_smem ? ((p.m * p.J + 3) & ~3) : 0;
+  RowsSink sink{p.plane};
+  walk_wide<T, float, M, true>(p, lam, smem + lam_floats, sink);
 }
 
 struct RunPrimal {
@@ -67,9 +96,19 @@ struct RunPrimal {
   cudaStream_t stream;
   template <typename T, int M>
   cudaError_t run() {
-    return shape.wide
-        ? launch_kernel<primal_wide<T, M>>(*p, shape.grid, shape.threads, shape.smem, stream)
-        : launch_kernel<primal_narrow<T, M>>(*p, shape.grid, shape.threads, shape.smem, stream);
+    return shape.wide ? launch_kernel<primal_wide<T, M>>(*p, shape, stream)
+                      : launch_kernel<primal_narrow<T, M>>(*p, shape, stream);
+  }
+};
+
+struct RunRows {
+  const Launch* p;
+  LaunchShape shape;
+  cudaStream_t stream;
+  template <typename T, int M>
+  cudaError_t run() {
+    return shape.wide ? launch_kernel<rows_wide<T, M>>(*p, shape, stream)
+                      : launch_kernel<rows_narrow<T, M>>(*p, shape, stream);
   }
 };
 
@@ -84,6 +123,35 @@ struct InfoPrimal {
                 : kernel_info<primal_narrow<T, M>>(threads, smem, out);
   }
 };
+
+struct InfoRows {
+  bool wide;
+  int threads;
+  size_t smem;
+  int* out;
+  template <typename T, int M>
+  cudaError_t run() {
+    return wide ? kernel_info<rows_wide<T, M>>(threads, smem, out)
+                : kernel_info<rows_narrow<T, M>>(threads, smem, out);
+  }
+};
+
+// Launch fields the slab walk reads and the primal kernels set alike.
+void primal_launch(Launch& p, const void* lam, int m, int J, float ginv, float radius,
+                   int inequality) {
+  p.lam = static_cast<const float*>(lam);
+  p.m = m;
+  p.J = J;
+  p.ginv = ginv;
+  p.radius = radius;
+  p.inequality = inequality;
+  p.acc = nullptr;
+  p.scal = nullptr;
+  p.qscale = 1.f;
+  p.lane_q = nullptr;
+  p.scal_lane_rows = 0;
+  p.plane = 0;
+}
 
 }  // namespace
 
@@ -106,22 +174,56 @@ extern "C" int dual_primal_run(const long long* slabs, int nslabs, const long lo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Launch p;
-  p.lam = static_cast<const float*>(lam);
-  p.m = m;
-  p.J = J;
-  p.ginv = ginv;
-  p.radius = radius;
-  p.inequality = inequality;
-  p.acc = nullptr;
-  p.scal = nullptr;
-  p.qscale = 1.f;
+  primal_launch(p, lam, m, J, ginv, radius, inequality);
   for (int l = 0; l < nlaunch; ++l) {
     RunPrimal f{&p, {}, static_cast<cudaStream_t>(stream)};
     if (!decode_launch(launches + static_cast<long long>(l) * kLaunchWords, slabs, nslabs, x,
                        p, f.shape)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    for (int i = 0; i < p.nslab; ++i) {
+      if (p.slab[i].rows != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    }
     const cudaError_t err = visit(dtype, M, f);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// What the compiler made of the row-list kernel (fp32 or bf16 slabs).
+extern "C" int dual_primal_rows_info(int dtype, int M, int wide, int threads, long long smem,
+                                     int* out) {
+  InfoRows f{wide != 0, threads, static_cast<size_t>(smem), out};
+  return static_cast<int>(visit_float(dtype, M, f));
+}
+
+// Runs one row-list call (kernels/dual_primal.py rows_call): every launch of
+// `launches` over the slabs of `slabs`, each with its row list (word 10) and
+// its output row count n (word 6); x (fp32) written through `x`, each slot's
+// mask and idx `plane` and 2 * `plane` floats past its x.  fp32 and bf16
+// slabs.  Launches on `stream` without synchronising; returns the first
+// CUDA error (0 on success).
+extern "C" int dual_primal_rows_run(const long long* slabs, int nslabs,
+                                    const long long* launches, int nlaunch, int dtype, int M,
+                                    int m, int J, const void* lam, const long long* x,
+                                    long long plane, float ginv, float radius, int inequality,
+                                    void* stream) {
+  if (!valid_families(M, m) || J < 1 || nlaunch < 0 || plane < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Launch p;
+  primal_launch(p, lam, m, J, ginv, radius, inequality);
+  p.plane = plane;
+  for (int l = 0; l < nlaunch; ++l) {
+    RunRows f{&p, {}, static_cast<cudaStream_t>(stream)};
+    if (!decode_launch(launches + static_cast<long long>(l) * kLaunchWords, slabs, nslabs, x,
+                       p, f.shape)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    for (int i = 0; i < p.nslab; ++i) {
+      if (p.slab[i].rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = visit_float(dtype, M, f);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);

@@ -37,7 +37,7 @@ constexpr int kMaxSmem = 232448;  // 227 KB opt-in shared memory per block
 constexpr int kMaxSlabs = 16;     // buckets one launch walks (MAX_SLABS in Python)
 constexpr int kUnroll = 4;        // 32-slot groups a warp loads together (UNROLL)
 constexpr int kWideWarps = 8;     // most warps of a wide-row block (WIDE_WARPS)
-constexpr int kSlabWords = 10;    // int64 words per bucket from Python (SLAB_WORDS)
+constexpr int kSlabWords = 12;    // int64 words per bucket from Python (SLAB_WORDS)
 constexpr int kLaunchWords = 9 + kMaxSlabs;  // int64 words per launch (LAUNCH_WORDS)
 
 // Threads of a narrow-row block: the most that fit the registers a slot of
@@ -55,19 +55,26 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <typename T> struct OutType { using type = T; };
 template <> struct OutType<int8_t> { using type = float; };
 
-// One bucket slab of a launch.
+// One bucket slab of a launch.  A launch over a stack of B same-shape
+// instances (the tenant axis, gridDim.y = B) reads lane b's slab at b times
+// the lane's own size past these pointers: the stacked tensors are
+// contiguous [B, ...].  A row list (`rows`, the serving query) makes output
+// row r read source row rows[r]; the output then has `n` rows, the source
+// `src_n`.
 struct Slab {
-  const int32_t* idx;        // [n, L]
-  const void* coeff;         // [m, n, L] storage dtype
-  const void* cost;          // [n, L] storage dtype
-  const void* mask;          // [n, L] storage dtype
+  const int32_t* idx;        // [src_n, L]
+  const void* coeff;         // [m, src_n, L] storage dtype
+  const void* cost;          // [src_n, L] storage dtype
+  const void* mask;          // [src_n, L] storage dtype
   const float* coeff_scale;  // [m] (int8 only, else null)
   const float* cost_scale;   // [1] (int8 only, else null)
-  void* x;                   // [n, L] storage dtype (fp32 for int8)
-  long long n;               // rows
+  void* x;                   // [n, L] output dtype
+  long long n;               // rows of the output (and of the task space)
   long long task0;           // narrow rows: first warp task of this slab
   int logl;                  // log2 of the width L
   int scan_chunk;            // wide rows: chunk of the cumsum order, <= L
+  const long long* rows;     // [n] source row of each output row, or null
+  long long src_n;           // rows of the source slab (== n without rows)
 };
 
 // Everything one launch computes, passed by value (__grid_constant__).
@@ -85,6 +92,13 @@ struct Launch {
   int hist_mode;            // kHistShared / kHistGlobal
   int scal_row;             // this launch's first scal row
   float qscale;             // 2^shift of the fixed-point A x
+  // the tenant axis (gridDim.y lanes): lam, acc and scal advance by one
+  // lane's size per lane; each lane has its own 2^shift (lane_q) when given
+  const float* lane_q;      // [lanes] qscale per lane, or null (qscale)
+  int scal_lane_rows;       // scal rows of one lane
+  // row-list outputs: a slot's mask (fp32) and idx (int32) are written
+  // `plane` and 2 * `plane` floats past its x
+  long long plane;
 };
 
 // Where the oracle's int64 A x histogram lives.
@@ -104,22 +118,47 @@ template <int M>
 __device__ __forceinline__ void load_scales(const Slab& b, int m, float (&scale)[M],
                                             float& cost_scale) {
 #pragma unroll
+  const long long lane = blockIdx.y;
   for (int k = 0; k < M; ++k)
-    scale[k] = (b.coeff_scale != nullptr && k < m) ? b.coeff_scale[k] : 1.f;
-  cost_scale = b.cost_scale != nullptr ? b.cost_scale[0] : 1.f;
+    scale[k] = (b.coeff_scale != nullptr && k < m) ? b.coeff_scale[lane * m + k] : 1.f;
+  cost_scale = b.cost_scale != nullptr ? b.cost_scale[lane] : 1.f;
 }
 
-template <typename T, int M>
-__device__ __forceinline__ void load_slot(const Slab& b, int m, const float (&scale)[M],
-                                          float cost_scale, long long s, long long slots,
-                                          bool valid, Slot<M>& out) {
-  const T* coeff = static_cast<const T*>(b.coeff);
-  out.idx = valid ? b.idx[s] : 0;
-  out.cost = valid ? widen(static_cast<const T*>(b.cost)[s]) * cost_scale : 0.f;
-  out.mask = valid ? widen(static_cast<const T*>(b.mask)[s]) : 0.f;
+// One lane's view of a slab: its typed pointers, already offset to the lane.
+template <typename T, typename TO>
+struct LaneSlab {
+  const int32_t* idx;
+  const T* coeff;
+  const T* cost;
+  const T* mask;
+  TO* x;
+  long long src_slots;  // slots of the source slab (the coeff family stride)
+};
+
+template <typename T, typename TO>
+__device__ __forceinline__ LaneSlab<T, TO> lane_slab(const Slab& b, int m) {
+  const long long lane = blockIdx.y;
+  const long long src_slots = b.src_n << b.logl;
+  LaneSlab<T, TO> v;
+  v.idx = b.idx + lane * src_slots;
+  v.coeff = static_cast<const T*>(b.coeff) + lane * m * src_slots;
+  v.cost = static_cast<const T*>(b.cost) + lane * src_slots;
+  v.mask = static_cast<const T*>(b.mask) + lane * src_slots;
+  v.x = static_cast<TO*>(b.x) + lane * (b.n << b.logl);
+  v.src_slots = src_slots;
+  return v;
+}
+
+template <typename T, typename TO, int M>
+__device__ __forceinline__ void load_slot(const LaneSlab<T, TO>& v, int m,
+                                          const float (&scale)[M], float cost_scale,
+                                          long long s, bool valid, Slot<M>& out) {
+  out.idx = valid ? v.idx[s] : 0;
+  out.cost = valid ? widen(v.cost[s]) * cost_scale : 0.f;
+  out.mask = valid ? widen(v.mask[s]) : 0.f;
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    out.coeff[k] = (k < m && valid) ? widen(coeff[k * slots + s]) * scale[k] : 0.f;
+    out.coeff[k] = (k < m && valid) ? widen(v.coeff[k * v.src_slots + s]) * scale[k] : 0.f;
   }
 }
 
@@ -276,16 +315,18 @@ __device__ __forceinline__ float simplex_wide_apply(float v, float maskf, const 
 }
 
 // One warp task of a narrow slab (L = 2^LOGL <= 32): kUnroll groups of 32
-// consecutive slots starting at group g0, i.e. whole rows, one per segment of
-// L lanes.  The loads of all groups are issued before any is computed.
-template <typename T, int M, int LOGL, typename Sink>
+// consecutive output slots starting at group g0, i.e. whole rows, one per
+// segment of L lanes.  The loads of all groups are issued before any is
+// computed.  With ROWS, output row r reads source row b.rows[r].  x is
+// written as TO; the sink receives each slot, its x and where x went.
+template <typename T, typename TO, int M, int LOGL, bool ROWS, typename Sink>
 __device__ __forceinline__ void narrow_task(const Launch& p, const Slab& b, long long g0,
                                             const float* lam, Sink& sink) {
-  using TO = typename OutType<T>::type;
   constexpr int L = 1 << LOGL;
   const int lane = threadIdx.x & 31;
   const int pos = lane & (L - 1);
   const long long slots = b.n << LOGL;
+  const LaneSlab<T, TO> v = lane_slab<T, TO>(b, p.m);
   float scale[M], cost_scale;
   load_scales<M>(b, p.m, scale, cost_scale);
   Slot<M> slot[kUnroll];
@@ -294,19 +335,22 @@ __device__ __forceinline__ void narrow_task(const Launch& p, const Slab& b, long
   for (int u = 0; u < kUnroll; ++u) {
     const long long s = (g0 + u) * 32 + lane;
     valid[u] = s < slots;
-    load_slot<T, M>(b, p.m, scale, cost_scale, s, slots, valid[u], slot[u]);
+    long long src = s;
+    if (ROWS) src = valid[u] ? (b.rows[s >> LOGL] << LOGL) + pos : 0;
+    load_slot<T, TO, M>(v, p.m, scale, cost_scale, src, valid[u], slot[u]);
   }
   float x[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const float v = primal_candidate<M>(slot[u], lam, p.m, p.J, p.ginv);
-    x[u] = simplex_segment<LOGL>(v, slot[u].mask, pos, p.radius, p.inequality != 0);
+    const float c = primal_candidate<M>(slot[u], lam, p.m, p.J, p.ginv);
+    x[u] = simplex_segment<LOGL>(c, slot[u].mask, pos, p.radius, p.inequality != 0);
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     if (valid[u]) {
-      store(static_cast<TO*>(b.x) + (g0 + u) * 32 + lane, x[u]);
-      sink(slot[u], x[u]);
+      TO* xp = v.x + (g0 + u) * 32 + lane;
+      store(xp, x[u]);
+      sink(slot[u], x[u], xp);
     }
   }
 }
@@ -314,7 +358,7 @@ __device__ __forceinline__ void narrow_task(const Launch& p, const Slab& b, long
 // The narrow rows of a launch: every warp takes warp tasks (kUnroll groups
 // of 32 slots) of all its slabs in turn, the slabs one after another in
 // task space (Slab::task0, computed by the Python plan).
-template <typename T, int M, typename Sink>
+template <typename T, typename TO, int M, bool ROWS, typename Sink>
 __device__ __forceinline__ void walk_narrow(const Launch& p, const float* lam, Sink& sink) {
   const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
   for (long long t = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -324,12 +368,12 @@ __device__ __forceinline__ void walk_narrow(const Launch& p, const float* lam, S
     const Slab& b = p.slab[i];
     const long long g0 = (t - b.task0) * kUnroll;
     switch (b.logl) {
-      case 0: narrow_task<T, M, 0>(p, b, g0, lam, sink); break;
-      case 1: narrow_task<T, M, 1>(p, b, g0, lam, sink); break;
-      case 2: narrow_task<T, M, 2>(p, b, g0, lam, sink); break;
-      case 3: narrow_task<T, M, 3>(p, b, g0, lam, sink); break;
-      case 4: narrow_task<T, M, 4>(p, b, g0, lam, sink); break;
-      default: narrow_task<T, M, 5>(p, b, g0, lam, sink); break;
+      case 0: narrow_task<T, TO, M, 0, ROWS>(p, b, g0, lam, sink); break;
+      case 1: narrow_task<T, TO, M, 1, ROWS>(p, b, g0, lam, sink); break;
+      case 2: narrow_task<T, TO, M, 2, ROWS>(p, b, g0, lam, sink); break;
+      case 3: narrow_task<T, TO, M, 3, ROWS>(p, b, g0, lam, sink); break;
+      case 4: narrow_task<T, TO, M, 4, ROWS>(p, b, g0, lam, sink); break;
+      default: narrow_task<T, TO, M, 5, ROWS>(p, b, g0, lam, sink); break;
     }
   }
 }
@@ -337,47 +381,63 @@ __device__ __forceinline__ void walk_narrow(const Launch& p, const float* lam, S
 // The rows of one wide slab (64 <= L <= 8192, slab[0] of the launch): one
 // warp per row, its candidates sorted and scanned in the warp's two
 // shared-memory rows A and C (simplex_wide_cut), then computed again for x.
-template <typename T, int M, typename Sink>
+template <typename T, typename TO, int M, bool ROWS, typename Sink>
 __device__ __forceinline__ void walk_wide(const Launch& p, const float* lam, float* rows,
                                           Sink& sink) {
-  using TO = typename OutType<T>::type;
   const Slab& b = p.slab[0];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int L = 1 << b.logl;
   float* A = rows + 2 * warp * L;  // the sorted row
   float* C = A + L;                // its inclusive scan
+  const LaneSlab<T, TO> v = lane_slab<T, TO>(b, p.m);
   float scale[M], cost_scale;
   load_scales<M>(b, p.m, scale, cost_scale);
-  const long long slots = b.n * L;
   const long long stride = static_cast<long long>(gridDim.x) * warps;
   for (long long row = static_cast<long long>(blockIdx.x) * warps + warp; row < b.n;
        row += stride) {
-    const long long base = row * L;
+    const long long base = (ROWS ? b.rows[row] : row) * L;
     auto candidate = [&](int q, Slot<M>& s) {
-      load_slot<T, M>(b, p.m, scale, cost_scale, base + q, slots, true, s);
+      load_slot<T, TO, M>(v, p.m, scale, cost_scale, base + q, true, s);
       return primal_candidate<M>(s, lam, p.m, p.J, p.ginv);
     };
     const RowCut cut = simplex_wide_cut(
-        [&](int q, float& v, float& maskf) {
+        [&](int q, float& val, float& maskf) {
           Slot<M> s;
-          v = candidate(q, s);
+          val = candidate(q, s);
           maskf = s.mask;
         },
         A, C, L, b.scan_chunk, p.radius, p.inequality != 0);
     for (int q = lane; q < L; q += 32) {
       Slot<M> s;
       const float x = simplex_wide_apply(candidate(q, s), s.mask, cut);
-      store(static_cast<TO*>(b.x) + base + q, x);
-      sink(s, x);
+      TO* xp = v.x + row * L + q;
+      store(xp, x);
+      sink(s, x, xp);
     }
   }
 }
 
 // The sink of the primal step: x is all it computes.
 struct NoSink {
-  template <int M>
-  __device__ __forceinline__ void operator()(const Slot<M>&, float) {}
+  template <int M, typename TO>
+  __device__ __forceinline__ void operator()(const Slot<M>&, float, TO*) {}
 };
+
+// The sink of a row-list call: the slot's mask (fp32) and idx (int32) go
+// `plane` and 2 * `plane` floats past its fp32 x.
+struct RowsSink {
+  long long plane;
+  template <int M>
+  __device__ __forceinline__ void operator()(const Slot<M>& s, float, float* xp) {
+    xp[plane] = s.mask;
+    reinterpret_cast<int32_t*>(xp)[2 * plane] = s.idx;
+  }
+};
+
+// lam of this block's lane (the tenant axis: lane b's duals at b * m * J).
+__device__ __forceinline__ const float* lane_lam(const Launch& p) {
+  return p.lam + static_cast<long long>(blockIdx.y) * p.m * p.J;
+}
 
 // -- host side --------------------------------------------------------------
 
@@ -391,14 +451,15 @@ struct LaunchShape {
   bool wide;
   int grid, threads;
   size_t smem;
+  int lanes = 1;  // gridDim.y: the tenant axis
 };
 
 // Decodes launch word block `lw` of the Python plan (kLaunchWords int64:
 // wide, grid, threads, smem, lam_in_smem, hist_mode, scal_row, tasks,
 // nslab, then the slab ids) into `p` and `shape`, with its slabs from
 // `words` (kSlabWords int64 per slab: idx, coeff, cost, mask, coeff_scale,
-// cost_scale, n, L, task0, scan_chunk) and one x pointer each.  Returns
-// false on what the kernels do not take.
+// cost_scale, n, L, task0, scan_chunk, rows, src_n) and one x pointer each.
+// Returns false on what the kernels do not take.
 inline bool decode_launch(const long long* lw, const long long* words, int nslabs,
                           const long long* x, Launch& p, LaunchShape& shape) {
   shape.wide = lw[0] != 0;
@@ -434,10 +495,13 @@ inline bool decode_launch(const long long* lw, const long long* words, int nslab
     while ((1LL << s.logl) < L) ++s.logl;
     s.task0 = w[8];
     s.scan_chunk = static_cast<int>(w[9]);
+    s.rows = reinterpret_cast<const long long*>(w[10]);
+    s.src_n = w[11];
     if (shape.wide && (s.scan_chunk < 32 || s.scan_chunk > L ||
                        (s.scan_chunk & (s.scan_chunk - 1)))) {
       return false;
     }
+    if (s.src_n < 0 || (s.rows == nullptr && s.src_n != s.n)) return false;
   }
   return true;
 }
@@ -459,13 +523,12 @@ cudaError_t allow_max_smem() {
 
 // Launches kernel K and returns the launch's error (0 on success).
 template <auto K, typename P>
-cudaError_t launch_kernel(const P& p, int grid, int threads, size_t smem,
-                          cudaStream_t stream) {
+cudaError_t launch_kernel(const P& p, const LaunchShape& shape, cudaStream_t stream) {
   cudaError_t err = allow_max_smem<K>();
   if (err != cudaSuccess) return err;
   void* args[] = {const_cast<P*>(&p)};
-  return cudaLaunchKernel(reinterpret_cast<const void*>(K), dim3(grid), dim3(threads), args,
-                          smem, stream);
+  return cudaLaunchKernel(reinterpret_cast<const void*>(K), dim3(shape.grid, shape.lanes),
+                          dim3(shape.threads), args, shape.smem, stream);
 }
 
 // What the compiler made of kernel K and how many of its blocks of
@@ -502,6 +565,22 @@ cudaError_t visit(int dtype, int M, F& f) {
     case 2 * 16 + 2: return f.template run<int8_t, 2>();
     case 2 * 16 + 4: return f.template run<int8_t, 4>();
     case 2 * 16 + 8: return f.template run<int8_t, 8>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// visit() for the float storage dtypes only (0 fp32, 1 bf16).
+template <typename F>
+cudaError_t visit_float(int dtype, int M, F& f) {
+  switch (dtype * 16 + M) {
+    case 0 * 16 + 1: return f.template run<float, 1>();
+    case 0 * 16 + 2: return f.template run<float, 2>();
+    case 0 * 16 + 4: return f.template run<float, 4>();
+    case 0 * 16 + 8: return f.template run<float, 8>();
+    case 1 * 16 + 1: return f.template run<__nv_bfloat16, 1>();
+    case 1 * 16 + 2: return f.template run<__nv_bfloat16, 2>();
+    case 1 * 16 + 4: return f.template run<__nv_bfloat16, 4>();
+    case 1 * 16 + 8: return f.template run<__nv_bfloat16, 8>();
     default: return cudaErrorInvalidValue;
   }
 }

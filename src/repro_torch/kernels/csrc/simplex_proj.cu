@@ -481,7 +481,8 @@ struct RunProj {
   cudaStream_t stream;
   template <auto K>
   cudaError_t run() {
-    return launch_kernel<K>(*p, grid, threads, smem, stream);
+    LaunchShape shape{false, grid, threads, smem};
+    return launch_kernel<K>(*p, shape, stream);
   }
 };
 

@@ -15,6 +15,13 @@ the outputs and passes lam, 1/gamma and the output pointers: one
 `oracle_narrow` launch for the main path's six buckets, then one
 `oracle_finalize`, counted in `launches` and `finalize_launches`.
 
+The tenant axis (`plan_batched`, the batched multi-tenant solve): over B
+stacked instances of one shape ([B, ...] slabs) the plan is lane 0's plan
+with B lanes (gridDim.y = B) and a fixed-point shift per lane, since each
+lane's coefficients fix its own.  A batched call is the same launches as a
+solo one, whatever B, and each lane's x, A x, c'x and ||x||^2 are bitwise
+its solo call's.
+
 Capacity (replaces the TPU's one-hot VMEM gate `fits_onehot_budget`): the
 int64 [m, J] histogram lives in shared memory when it fits (with lam beside
 it when that fits too; each block adds it into one global row at its end),
@@ -27,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -55,6 +63,7 @@ __all__ = [
     "oracle_call",
     "oracle_finalize",
     "oracle_layout",
+    "plan_batched",
     "plan_slabs",
     "primal_layout",
 ]
@@ -64,7 +73,7 @@ MAX_FAMILIES = 8  # largest template family count M
 MAX_SLABS = 16  # kMaxSlabs: buckets one launch walks
 UNROLL = 4  # kUnroll: 32-slot groups a warp loads together
 WIDE_WARPS = 8  # kWideWarps: most warps of a wide-row block
-SLAB_WORDS = 10  # kSlabWords: int64 words per bucket
+SLAB_WORDS = 12  # kSlabWords: int64 words per bucket
 LAUNCH_WORDS = 9 + MAX_SLABS  # kLaunchWords: int64 words per launch
 SMEM_PER_BLOCK = 232_448  # 227 KB of opt-in shared memory per block (H100)
 RED_BYTES = 256  # the block reduction's slots (2 x 32 warps x fp32)
@@ -77,6 +86,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launches = 0  # oracle kernel launches since import (reset freely by callers)
 finalize_launches = 0  # finalize kernel launches since import
+_count_lock = threading.Lock()  # callers launch from several threads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,11 +231,17 @@ class SlabPlan:
     radius: float
     inequality: bool
     shift: int  # fixed point of A x (the oracle)
-    scal_rows: int  # blocks of all launches (the oracle)
+    scal_rows: int  # blocks of all launches (the oracle), per lane
     finalize_grid: int
     slab_words: ctypes.Array
     launch_words: ctypes.Array
     slab_tensors: tuple  # keeps the slabs the words point into alive
+    # the tenant axis (`plan_batched`): lanes (0: a solo plan, whose calls
+    # take and return no lane dimension), each lane's shift, and [2, lanes]
+    # fp32 on the card holding 2^shift and 2^-shift of each lane
+    lanes: int = 0
+    lane_shifts: tuple[int, ...] = ()
+    lane_q: Optional[torch.Tensor] = None
 
 
 _fns: dict = {}
@@ -237,10 +253,12 @@ def _fn(name: str):
     if fn is None:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib = build.load("dual_oracle" if name.startswith("dual_oracle") else "dual_primal")
+        rows_run = [ptr, i32, ptr, i32, i32, i32, i32, i32, ptr, ptr, i64, f32, f32, i32, ptr]
         fn = getattr(lib, name)
         fn.argtypes = {
             "dual_oracle_info": [i32, i32, i32, i32, i64, ptr],
             "dual_primal_info": [i32, i32, i32, i32, i64, ptr],
+            "dual_primal_rows_info": [i32, i32, i32, i32, i64, ptr],
             "dual_oracle_run": [
                 ptr, i32, ptr, i32,  # slab words, count, launch words, count
                 i32, i32, i32, i32,  # dtype M m J
@@ -248,8 +266,10 @@ def _fn(name: str):
                 ptr, ptr, i32,  # the int64 row, the (c'x, ||x||^2) rows and their count
                 ptr, ptr,  # ax, (c'x, ||x||^2)
                 f32, f32, i32, i32, i32,  # 1/gamma radius inequality shift finalize grid
+                i32, ptr,  # lanes, per-lane 2^shift and 2^-shift
                 ptr,  # stream
             ],
+            "dual_primal_rows_run": rows_run,
             "dual_oracle_finalize": [ptr, i32, ptr, i32, i32, ptr, ptr, i32, ptr],
             "dual_primal_run": [
                 ptr, i32, ptr, i32, i32, i32, i32, i32, ptr, ptr, f32, f32, i32, ptr,
@@ -425,7 +445,7 @@ def plan_slabs(
         w = [s.idx.data_ptr(), s.coeff.data_ptr(), s.cost.data_ptr(), s.mask.data_ptr(),
              s.coeff_scale.data_ptr() if quantized else 0,
              s.cost_scale.data_ptr() if quantized else 0,
-             n, L, task0.get(i, 0), _scan_chunk(n, L) if L > 32 else L]
+             n, L, task0.get(i, 0), _scan_chunk(n, L) if L > 32 else L, 0, n]
         words[SLAB_WORDS * i:SLAB_WORDS * (i + 1)] = w
     lwords = (ctypes.c_longlong * (LAUNCH_WORDS * max(1, len(placed))))()
     for k, p in enumerate(placed):
@@ -447,9 +467,45 @@ def plan_slabs(
     )
 
 
+def plan_batched(
+    slabs: Sequence,
+    num_destinations: int,
+    *,
+    radius: float = 1.0,
+    inequality: bool = True,
+    grid: Optional[int] = None,
+) -> SlabPlan:
+    """The oracle's plan over B stacked instances of one shape (the tenant
+    axis): `slabs` hold contiguous [B, ...] tensors (idx [B, n, L], coeff
+    [B, m, n, L], cost and mask [B, n, L]; int8 scales [B, m, 1, 1] and
+    [B, 1, 1]).  Lane 0's plan, launched with B lanes, and the fixed-point
+    shift of every lane (one host sync per lane)."""
+    _require(bool(slabs), "a plan needs at least one slab")
+    lanes = int(slabs[0].cost.shape[0])
+    for s in slabs:
+        for t in (s.idx, s.coeff, s.cost, s.mask, s.coeff_scale, s.cost_scale):
+            _require(t is None or (t.dim() >= 1 and t.shape[0] == lanes and t.is_contiguous()),
+                     "stacked slabs must be contiguous with one leading lane dimension")
+    from repro_torch.kernels.ref import lane_slab
+
+    plan = plan_slabs("dual_oracle", [lane_slab(s, 0) for s in slabs], num_destinations,
+                      radius=radius, inequality=inequality, grid=grid)
+    shifts = tuple(
+        fixed_point_shift([lane_slab(s, b) for s in slabs], num_destinations, radius)
+        for b in range(lanes))
+    q = torch.tensor([[2.0 ** k for k in shifts], [2.0 ** -k for k in shifts]],
+                     dtype=torch.float32).to(plan.device)
+    return dataclasses.replace(
+        plan, lanes=lanes, lane_shifts=shifts, lane_q=q,
+        slab_tensors=tuple((s.idx, s.coeff, s.cost, s.mask, s.coeff_scale, s.cost_scale)
+                           for s in slabs))
+
+
 def _outputs(plan: SlabPlan) -> tuple[tuple[torch.Tensor, ...], ctypes.Array]:
-    """The x slabs of one call and their pointers."""
-    xs = tuple(torch.empty(shape, dtype=plan.out_dtype, device=plan.device)
+    """The x slabs of one call ([B, n, L] each over B lanes) and their
+    pointers."""
+    lead = (plan.lanes,) if plan.lanes else ()
+    xs = tuple(torch.empty(lead + shape, dtype=plan.out_dtype, device=plan.device)
                for shape in plan.shapes)
     ptrs = (ctypes.c_longlong * max(1, len(xs)))(*[x.data_ptr() for x in xs])
     return xs, ptrs
@@ -461,32 +517,43 @@ def oracle_call(
     """One oracle call of a "dual_oracle" plan: `(x_slabs, ax, lin, sq)`.
 
     x_slabs in the storage dtype (fp32 for int8), ax [m*J] = A x, lin =
-    c'x and sq = ||x||^2, all fp32.  `scratch`, when given, receives the
-    int64 row ("acc") and the per-block fp32 partials ("scal") the finalize
-    read."""
+    c'x and sq = ||x||^2, all fp32.  Over B lanes (`plan_batched`) lam is
+    [B, m*J] and the outputs gain the lane dimension: x [B, n, L] per
+    bucket, ax [B, m*J], lin and sq [B].  `scratch`, when given, receives
+    the int64 row ("acc") and the per-block fp32 partials ("scal") the
+    finalize read."""
     global launches, finalize_launches
     _require(plan.kernel == "dual_oracle", f"a {plan.kernel} plan")
-    mJ, dev = plan.m * plan.J, plan.device
-    _check_lam("dual_oracle", lam, mJ, dev)
+    mJ, dev, batched = plan.m * plan.J, plan.device, plan.lanes > 0
+    B = max(plan.lanes, 1)
+    _check_lam("dual_oracle", lam, B * mJ, dev)
+    _require(not batched or tuple(lam.shape) == (B, mJ), f"lam must be [{B}, {mJ}] over {B} lanes")
     xs, ptrs = _outputs(plan)
-    work = torch.zeros(mJ + plan.scal_rows, dtype=torch.int64, device=dev)
-    res = torch.empty(mJ + 2, dtype=torch.float32, device=dev)
+    work = torch.zeros(B * (mJ + plan.scal_rows), dtype=torch.int64, device=dev)
+    res = torch.empty(B * (mJ + 2), dtype=torch.float32, device=dev)
     acc_ptr, res_ptr = work.data_ptr(), res.data_ptr()
     with torch.cuda.device(dev):
         rc = _fn("dual_oracle_run")(
             plan.slab_words, len(plan.shapes), plan.launch_words, len(plan.launches),
             _DTYPE_CODES[plan.dtype], plan.M, plan.m, plan.J, lam.data_ptr(), ptrs,
-            acc_ptr, acc_ptr + 8 * mJ, plan.scal_rows, res_ptr, res_ptr + 4 * mJ,
+            acc_ptr, acc_ptr + 8 * B * mJ, plan.scal_rows, res_ptr, res_ptr + 4 * B * mJ,
             inv_gamma(gamma), plan.radius, int(plan.inequality), plan.shift,
-            plan.finalize_grid, torch.cuda.current_stream(dev).cuda_stream,
+            plan.finalize_grid, B, 0 if plan.lane_q is None else plan.lane_q.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"dual_oracle kernel launch failed: CUDA error {rc}")
-    launches += len(plan.launches)
-    finalize_launches += 1
+    with _count_lock:
+        launches += len(plan.launches)
+        finalize_launches += 1
     if scratch is not None:
-        scratch.update(acc=work[:mJ],
-                       scal=work[mJ:].view(torch.float32).reshape(plan.scal_rows, 2))
+        scal = work[B * mJ:].view(torch.float32)
+        scratch.update(acc=work[:B * mJ].view(B, mJ) if batched else work[:mJ],
+                       scal=scal.reshape(B, plan.scal_rows, 2) if batched
+                       else scal.reshape(plan.scal_rows, 2))
+    if batched:
+        lin_sq = res[B * mJ:].view(B, 2)
+        return xs, res[:B * mJ].view(B, mJ), lin_sq[:, 0], lin_sq[:, 1]
     return xs, res[:mJ], res[mJ], res[mJ + 1]
 
 
@@ -510,7 +577,8 @@ def oracle_finalize(acc: torch.Tensor, scal: torch.Tensor, shift: int,
         )
     if rc != 0:
         raise RuntimeError(f"dual_oracle finalize launch failed: CUDA error {rc}")
-    finalize_launches += 1
+    with _count_lock:
+        finalize_launches += 1
     return ax, lin_sq
 
 

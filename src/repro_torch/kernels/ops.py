@@ -1,7 +1,11 @@
 """Dispatch of the three kernels (port of `repro.kernels.ops`).
 
   fused_dual_oracle_call      one-pass oracle, every bucket   dual_oracle.oracle_call
+  fused_dual_oracle_batched_call  the same over B stacked     dual_oracle.oracle_call
+                              instances (the tenant axis)     (a plan_batched plan)
   fused_dual_primal_call      the primal step, every bucket   dual_primal.primal_call
+  fused_dual_primal_rows      the primal step of requested    dual_primal.rows_call
+                              rows (the serving query)
   fused_project_simplex_call  projection, every bucket        simplex_proj.simplex_call
   fused_pdhg_step_call        PDHG prox step, every bucket    dual_oracle.oracle_call
   fused_dual_oracle           one-pass oracle, one bucket     dual_oracle.dual_oracle
@@ -51,9 +55,11 @@ from repro_torch.kernels.dual_oracle import MAX_FUSED_LENGTH
 __all__ = [
     "MAX_FUSED_LENGTH",
     "fused_dual_oracle",
+    "fused_dual_oracle_batched_call",
     "fused_dual_oracle_call",
     "fused_dual_primal",
     "fused_dual_primal_call",
+    "fused_dual_primal_rows",
     "fused_project_simplex",
     "fused_project_simplex_call",
     "fused_pdhg_step",
@@ -61,7 +67,9 @@ __all__ = [
     "PDHGStep",
     "oracle_hist_partial_bytes",
     "oracle_slab_slot_bytes",
+    "plan_batched_oracle",
     "plan_pdhg_step",
+    "plan_rows",
     "plan_slab_kernel",
     "width_routed",
 ]
@@ -180,6 +188,94 @@ def fused_dual_oracle_call(
         xs.insert(i, x)
         ax, lin, sq = ax + hist.reshape(-1), lin + b_lin, sq + b_sq
     return tuple(xs), ax, lin, sq
+
+
+def plan_batched_oracle(buckets, num_destinations: int, *, radius: float = 1.0,
+                        inequality: bool = True):
+    """The oracle's plan over stacked buckets ([B, ...] tensors, the tenant
+    axis) of kernel widths, built once per batched objective on the card;
+    None on the CPU or when no bucket has a kernel width."""
+    if not _on_card(buckets[0].cost):
+        return None
+    slabs = [b for b in buckets if _kernel_width(b.cost.shape[-1])]
+    if not slabs:
+        return None
+    return kdo.plan_batched(slabs, num_destinations, radius=radius, inequality=inequality)
+
+
+def fused_dual_oracle_batched_call(
+    buckets,  # stacked `Bucket`s: [B, ...] tensors of one shape
+    lam: torch.Tensor,  # [B, m * J] fp32
+    gamma: float,  # shared by every lane
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+    plan=None,  # plan_batched_oracle(...), built here if None
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole one-pass oracle of every lane of a stack of instances:
+    `(x_slabs [B, n, L] each, ax [B, m*J], lin [B], sq [B])`, lane b's
+    bitwise its own solo call's.  On the card one oracle launch for every
+    lane and bucket of width <= 32 (one more per wider bucket) and one
+    finalize over [B, m*J]; on the CPU the plain call, lane by lane."""
+    J = num_destinations
+    routed = _routed([b.cost.shape[-1] for b in buckets])
+    if not _on_card(buckets[0].cost) or len(routed) == len(buckets):
+        return kref.dual_oracle_batched_ref(buckets, lam, gamma, J, radius,
+                                            inequality=inequality)
+    if plan is None:
+        plan = plan_batched_oracle(buckets, J, radius=radius, inequality=inequality)
+    xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma)
+    if not routed:
+        return xs, ax, lin, sq
+    xs = list(xs)
+    for i in routed:  # plain version, its partials added after the kernel's
+        x, hist, b_lin, b_sq = kref.dual_oracle_batched_ref([buckets[i]], lam, gamma, J, radius,
+                                                            inequality=inequality)
+        xs.insert(i, x[0])
+        ax, lin, sq = ax + hist, lin + b_lin, sq + b_sq
+    return tuple(xs), ax, lin, sq
+
+
+def plan_rows(buckets, num_destinations: int, *, radius: float = 1.0, inequality: bool = True):
+    """The row-list plan of the primal step over every bucket of kernel
+    width (fp32 or bf16), built once per snapshot on the card; None on the
+    CPU.  Buckets of other widths take the plain version per query."""
+    if not _on_card(buckets[0].cost):
+        return None
+    return kdp.plan_rows(buckets, num_destinations, radius=radius, inequality=inequality)
+
+
+def fused_dual_primal_rows(
+    buckets,
+    requests,  # [(bucket, rows int64 [q])]
+    lam: torch.Tensor,  # [m * J] fp32
+    gamma: float,
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+    plan=None,  # plan_rows(...) over `buckets`, built here if None
+) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The primal step x = Pi( -(A^T lam + c)/gamma ) of the requested rows
+    of each bucket: per request `(x [q, L] fp32, mask [q, L] fp32, idx
+    [q, L] int32)`, x bitwise the full-slab step's rows (in fp32 for bf16
+    slabs).  On the card one launch for every requested bucket of width <=
+    32 (one more per wider bucket); on the CPU the plain version."""
+    J = num_destinations
+    plain = lambda reqs: kref.dual_primal_rows_ref(buckets, reqs, lam, gamma, J, radius,
+                                                   inequality=inequality)
+    if not _on_card(buckets[0].cost):
+        return plain(requests)
+    if plan is None:
+        plan = plan_rows(buckets, J, radius=radius, inequality=inequality)
+    routed = {i for i, (t, _) in enumerate(requests)
+              if not _kernel_width(buckets[int(t)].cost.shape[-1])}
+    kept = [r for i, r in enumerate(requests) if i not in routed]
+    out = list(kdp.rows_call(plan, lam, gamma, kept)) if kept else []
+    for i in sorted(routed):
+        out.insert(i, plain([requests[i]])[0])
+    return out
 
 
 def fused_dual_primal_call(

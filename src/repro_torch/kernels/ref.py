@@ -5,9 +5,12 @@ threshold -> subtract-and-clamp); `dual_primal_ref` is the unfused primal
 step x = Pi_simplex( -(A^T lam + c) * (1/gamma) ) for one bucket slab;
 `dual_oracle_ref` is the one-pass oracle of one bucket (primal slab + this
 bucket's A x histogram + the c'x / ||x||^2 partials) and
-`dual_oracle_call_ref` the whole oracle call over every bucket.  They are
-the plain versions of the three CUDA kernels: the path every CPU tensor
-takes and what each kernel is held against on the card.
+`dual_oracle_call_ref` the whole oracle call over every bucket;
+`dual_oracle_batched_ref` is that call over a stack of same-shape instances
+(the tenant axis), lane by lane, and `dual_primal_rows_ref` the primal step
+restricted to requested rows (the serving query).  They are the plain
+versions of the three CUDA kernels: the path every CPU tensor takes and
+what each kernel is held against on the card.
 
 `fixed_point_hist` is for tests only: A x summed as the oracle kernel sums
 it, in int64 fixed point, which is exact, so the kernel's A x equals it bit
@@ -19,15 +22,18 @@ the storage dtype for float storage (fp32 for int8).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.objective import _acc32, binned_segment_sum, gather_at_lam, inv_gamma
 from repro_torch.core.projections import project_simplex
 
 __all__ = [
+    "dual_oracle_batched_ref",
     "dual_oracle_call_ref",
+    "dual_primal_rows_ref",
     "dual_oracle_ref",
     "dual_primal_ref",
     "fixed_point_hist",
@@ -141,6 +147,71 @@ def dual_oracle_call_ref(
         lin = lin + b_lin
         sq = sq + b_sq
     return tuple(x_slabs), ax2.reshape(-1), lin, sq
+
+
+class LaneSlab(NamedTuple):
+    """Lane b of a stacked slab ([B, ...] tensors)."""
+
+    idx: torch.Tensor
+    coeff: torch.Tensor
+    cost: torch.Tensor
+    mask: torch.Tensor
+    coeff_scale: Optional[torch.Tensor]
+    cost_scale: Optional[torch.Tensor]
+
+
+def lane_slab(s, b: int) -> LaneSlab:
+    """Lane `b` of a stacked bucket or slab: views of its [B, ...] tensors."""
+    opt = lambda t: None if t is None else t[b]
+    return LaneSlab(s.idx[b], s.coeff[b], s.cost[b], s.mask[b], opt(s.coeff_scale),
+                    opt(s.cost_scale))
+
+
+def dual_oracle_batched_ref(
+    buckets,  # stacked buckets: [B, ...] tensors of one shape
+    lam: torch.Tensor,  # [B, m * J]
+    gamma,
+    J: int,
+    radius: float = 1.0,
+    *,
+    inequality: bool = True,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole oracle call of every lane: `(x_slabs [B, n, L] each, ax
+    [B, m*J], lin [B], sq [B])`, lane b being `dual_oracle_call_ref` of
+    lane b's slabs and duals."""
+    per = [dual_oracle_call_ref([lane_slab(b, i) for b in buckets], lam[i], gamma, J, radius,
+                                inequality=inequality)
+           for i in range(lam.shape[0])]
+    xs = tuple(torch.stack([p[0][k] for p in per]) for k in range(len(buckets)))
+    return (xs, torch.stack([p[1] for p in per]), torch.stack([p[2] for p in per]),
+            torch.stack([p[3] for p in per]))
+
+
+def dual_primal_rows_ref(
+    buckets,
+    requests: Sequence[tuple[int, np.ndarray]],  # (bucket, rows int64 [q])
+    lam: torch.Tensor,  # [m * J] fp32
+    gamma,
+    J: int,
+    radius: float = 1.0,
+    *,
+    inequality: bool = True,
+) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The primal step of the requested rows of each bucket: per request
+    `(x [q, L] fp32, mask [q, L] fp32, idx [q, L] int32)`, `dual_primal_ref`
+    of the gathered rows widened to fp32 (so bf16 slabs give the fp32 x
+    before the storage cast)."""
+    out = []
+    for t, rows in requests:
+        b = buckets[int(t)]
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=b.idx.device)
+        coeff, cost, mask = _dequant(b.coeff[:, r], b.cost[r], b.mask[r], b.coeff_scale,
+                                     b.cost_scale)
+        idx = b.idx[r]
+        x = dual_primal_ref(idx, coeff, cost, mask, lam, gamma, J, radius,
+                            inequality=inequality)
+        out.append((x, mask, idx))
+    return out
 
 
 def fixed_point_hist(

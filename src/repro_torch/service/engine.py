@@ -1,5 +1,4 @@
-"""Solve engine of the recurring-solve path, single-tenant half (port of
-`repro.service.engine`).
+"""Solve engine of the recurring-solve path (port of `repro.service.engine`).
 
 The full continuation solve is a function of the instance it is given:
 
@@ -13,8 +12,9 @@ is passed.  Nothing of one solve is cached for the next.
 Invariants:
 
   * **Solver caches** — `compiled_solver` / `compiled_solver_fixed_sigma`
-    hold one entry point per `(MaximizerConfig, normalize, fused_oracle,
-    engine)` key, as the reference's jit caches do.  Eager PyTorch compiles
+    and their batched counterparts hold one entry point per
+    `(MaximizerConfig, normalize, fused_oracle, engine)` key, as the
+    reference's jit caches do.  Eager PyTorch compiles
     nothing, so a "compile" here is the first call of an entry point on an
     instance of new slab shapes and dtypes (the reference's XLA re-keys on
     shapes the same way); later calls on the same shapes are cache hits.
@@ -28,12 +28,19 @@ Invariants:
     descriptors and values (O(delta)).  The plan's payload is the host
     slabs' own values, so the replayed device slabs equal the host slabs
     bit for bit.
-  * **Asynchrony** — the entry points only enqueue device work; `RawSolve`
-    holds device tensors.  Callers that time a solve end it with
-    `torch.cuda.synchronize()`.
-
-The batched half of the reference (`compiled_batch_solver*`,
-`to_solve_results`) comes with the tenant pool.
+  * **Batched solves** — `compiled_batch_solver*` take a stacked instance
+    (a leading tenant dimension B on every slab and on the rhs,
+    `core.batched.stack_lanes`) and `[B, m*J]` start duals, and return a
+    `RawSolve` whose every field has the lane dimension; `to_solve_results`
+    splits it.  The AGD engine runs one loop over the lanes
+    (`engines.agd.agd_raw_solve_batched`: with the fused oracle one kernel
+    call per iteration for the whole batch); the PDHG engine runs its lanes
+    one after another through the solo solve, which gives what a vmapped
+    PDHG solve gives, lane for lane.
+  * **Asynchrony** — the entry points enqueue device work and wait for the
+    device only where a solve decides on the host (once per early-stopping
+    chunk); `RawSolve` holds device tensors.  Callers that time a solve end
+    it with `torch.cuda.synchronize()`.
 """
 from __future__ import annotations
 
@@ -45,8 +52,10 @@ from typing import Optional
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core.maximizer import MaximizerConfig, SolveResult
+from repro_torch.core.batched import lane_instance
+from repro_torch.core.maximizer import MaximizerConfig, SolveResult, StageStats
 from repro_torch.device import resolve_device
+from repro_torch.engines.agd import agd_raw_solve_batched
 from repro_torch.engines.base import RawSolve, resolve_engine
 from repro_torch.instances.buckets import Bucket, BucketedInstance
 from repro_torch.instances.deltas import BucketScatter, ScatterPlan
@@ -55,7 +64,10 @@ __all__ = [
     "RawSolve",
     "compiled_solver",
     "compiled_solver_fixed_sigma",
+    "compiled_batch_solver",
+    "compiled_batch_solver_fixed_sigma",
     "to_solve_result",
+    "to_solve_results",
     "compile_cache_report",
     "device_put_instance",
     "apply_scatter_plan",
@@ -90,10 +102,48 @@ def _raw_solve(
     )
 
 
+def _stack_raws(raws: list[RawSolve]) -> RawSolve:
+    """Solo solves of the lanes stacked field by field into a batched one."""
+    st = lambda ts: torch.stack([torch.as_tensor(t) for t in ts])
+    return RawSolve(
+        lam=st([r.lam for r in raws]),
+        x_slabs=tuple(st(xs) for xs in zip(*(r.x_slabs for r in raws))),
+        g=st([r.g for r in raws]),
+        stats=tuple(StageStats(*(st(f) for f in zip(*stages)))
+                    for stages in zip(*(r.stats for r in raws))),
+        sigma_sq=st([r.sigma_sq for r in raws]),
+        etas=st([r.etas for r in raws]),
+        iters=st([r.iters for r in raws]),
+        restarts=st([r.restarts for r in raws]),
+    )
+
+
+def _raw_solve_batched(
+    stacked: BucketedInstance,
+    lam0: torch.Tensor,
+    cfg: MaximizerConfig,
+    normalize: bool,
+    fused_oracle: bool = False,
+    sigma_sq: Optional[torch.Tensor] = None,
+    engine: str = "agd",
+) -> RawSolve:
+    """The solve of every lane of a stacked instance on the named engine."""
+    if engine == "agd":
+        return agd_raw_solve_batched(stacked, lam0, cfg, normalize, fused_oracle, sigma_sq)
+    eng = resolve_engine(engine)
+    return _stack_raws([
+        eng.raw_solve(lane_instance(stacked, b), lam0[b], cfg, normalize=normalize,
+                      fused_oracle=fused_oracle,
+                      sigma_sq=None if sigma_sq is None else sigma_sq[b])
+        for b in range(lam0.shape[0])])
+
+
 # One entry point per (MaximizerConfig, normalize, fused_oracle, engine)
 # tuple; each remembers the instance shape keys it has been called on.
 _SINGLE: dict[tuple, object] = {}
 _SINGLE_SIGMA: dict[tuple, object] = {}
+_BATCH: dict[tuple, object] = {}
+_BATCH_SIGMA: dict[tuple, object] = {}
 
 
 def _leaves(inst: BucketedInstance) -> list[torch.Tensor]:
@@ -181,6 +231,46 @@ def compiled_solver_fixed_sigma(
     return fn
 
 
+def compiled_batch_solver(
+    cfg: MaximizerConfig, normalize: bool = False, fused_oracle: bool = False,
+    engine: str = "agd",
+):
+    """`(stacked_instance, lam0s [B, m*J]) -> RawSolve` of every lane: the
+    pool kernel.  The lanes run one AGD loop; with early stopping the batch
+    leaves a stage once every lane has converged, each lane's own carry
+    frozen from its own exit on."""
+    key = (cfg, normalize, fused_oracle, engine)
+    fn = _BATCH.get(key)
+    if fn is None:
+        fn = _instrument(
+            lambda inst, lam0: _raw_solve_batched(
+                inst, lam0, cfg, normalize, fused_oracle, engine=engine),
+            "batch",
+        )
+        _BATCH[key] = fn
+    return fn
+
+
+def compiled_batch_solver_fixed_sigma(
+    cfg: MaximizerConfig, normalize: bool = False, fused_oracle: bool = False,
+    engine: str = "agd",
+):
+    """`(stacked_instance, lam0s [B, m*J], sigma_sqs [B]) -> RawSolve`: the
+    batched counterpart of `compiled_solver_fixed_sigma`, every lane from
+    its own carried sigma_max(A)^2 estimate (`RawSolve.sigma_sq` echoes
+    them)."""
+    key = (cfg, normalize, fused_oracle, engine)
+    fn = _BATCH_SIGMA.get(key)
+    if fn is None:
+        fn = _instrument(
+            lambda inst, lam0, sigma_sq: _raw_solve_batched(
+                inst, lam0, cfg, normalize, fused_oracle, sigma_sq=sigma_sq, engine=engine),
+            "batch_sigma",
+        )
+        _BATCH_SIGMA[key] = fn
+    return fn
+
+
 def to_solve_result(raw: RawSolve) -> SolveResult:
     """`SolveResult` view of a (single-tenant) RawSolve; the step sizes,
     iteration counts and restarts are read to the host."""
@@ -194,6 +284,26 @@ def to_solve_result(raw: RawSolve) -> SolveResult:
         iters_used=tuple(int(i) for i in raw.iters),
         restarts=int(raw.restarts),
     )
+
+
+def to_solve_results(raw: RawSolve) -> list[SolveResult]:
+    """Split a batched RawSolve (leading lane dimension) into per-tenant
+    results; the step sizes, iteration counts and restarts are read to the
+    host."""
+    etas, iters, restarts = raw.etas.tolist(), raw.iters.tolist(), raw.restarts.tolist()
+    return [
+        SolveResult(
+            lam=raw.lam[b],
+            x_slabs=tuple(x[b] for x in raw.x_slabs),
+            g=raw.g[b],
+            stats=tuple(StageStats(*(t[b] for t in st)) for st in raw.stats),
+            sigma_sq=raw.sigma_sq[b],
+            steps=tuple(float(e) for e in etas[b]),
+            iters_used=tuple(int(i) for i in iters[b]),
+            restarts=int(restarts[b]),
+        )
+        for b in range(raw.lam.shape[0])
+    ]
 
 
 def device_put_instance(inst: BucketedInstance, device="cuda") -> BucketedInstance:
@@ -288,7 +398,8 @@ def instance_nbytes(inst: BucketedInstance) -> int:
 def compile_cache_report() -> dict[str, int]:
     """Number of instance shape keys seen per entry point (shape-keyed reuse)."""
     report = {}
-    for name, cache in (("single", _SINGLE), ("single_sigma", _SINGLE_SIGMA)):
+    for name, cache in (("single", _SINGLE), ("single_sigma", _SINGLE_SIGMA),
+                        ("batch", _BATCH), ("batch_sigma", _BATCH_SIGMA)):
         for (cfg, normalize, fused_oracle, engine), fn in cache.items():
             key = (
                 f"{name}:engine={engine},gammas={cfg.gammas},"

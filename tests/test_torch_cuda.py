@@ -5,7 +5,12 @@ small solves through them against the same solves on the CPU; then the
 recurring-solve path: the scatter-plan replay bitwise a fresh upload, a warm
 solve after a replay bitwise the same solve on a fresh upload (no kernel
 plan outlives its instance), and the COO PDHG baseline deterministic on the
-card and ending where the CPU's does.
+card and ending where the CPU's does; then the service: the oracle over a
+tenant axis (B stacked instances in one call) bitwise each lane's solo
+call, the primal step over a list of requested rows bitwise the whole-slab
+call's rows, one launch per call of each, the batched pool's lanes against
+their solo solves, and a served batch bitwise the direct projection of its
+snapshot on the card.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -565,3 +570,129 @@ def test_coo_pdhg_on_card_is_deterministic_and_matches_cpu(cuda):
     on_cpu = solve_pdhg(from_edge_list(small, device="cpu"), PDHGConfig(max_iters=40_000))
     assert bool(on_card.converged) and bool(on_cpu.converged)
     np.testing.assert_allclose(on_card.x.cpu().numpy(), on_cpu.x.numpy(), atol=1e-4)
+
+
+# -- the tenant axis and the row lists (the service and serving paths) -------
+
+
+def _stacked(B, shapes, m, J, dtype, device, seed=0):
+    """B lanes of one shape, lane b's coefficients scaled by 4^(b-1) so the
+    lanes' fixed-point shifts differ; returns (lanes, stacked buckets)."""
+    import dataclasses
+
+    lanes = []
+    for b in range(B):
+        bucket = []
+        for k, (n, L) in enumerate(shapes):
+            bb, _ = _bucket(seed + 100 * b + k, n, L, m, J, dtype, device, padded_rows=3)
+            bucket.append(dataclasses.replace(
+                bb, coeff=(bb.coeff.float() * 4.0 ** (b - 1)).to(bb.coeff.dtype)))
+        lanes.append(bucket)
+    st = [Bucket(idx=torch.stack([ln[k].idx for ln in lanes]),
+                 coeff=torch.stack([ln[k].coeff for ln in lanes]),
+                 cost=torch.stack([ln[k].cost for ln in lanes]),
+                 mask=torch.stack([ln[k].mask for ln in lanes]), length=shapes[k][1])
+          for k in range(len(shapes))]
+    return lanes, st
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 2, 4, 7])
+def test_batched_oracle_is_bitwise_each_lanes_solo_call(cuda, dtype, B):
+    J = 64
+    shapes = [(300 + 17 * L, L) for L in (1, 4, 8, 32)] + [(40, 64)]
+    lanes, st = _stacked(B, shapes, 2, J, dtype, cuda, seed=B)
+    lam = torch.from_numpy(np.random.default_rng(B).random((B, 2 * J)).astype(np.float32)).to(cuda)
+    plan = kops.plan_batched_oracle(st, J)
+    kdo.launches = kdo.finalize_launches = 0
+    xs, ax, lin, sq = kops.fused_dual_oracle_batched_call(st, lam, 0.05, num_destinations=J,
+                                                          plan=plan)
+    assert (kdo.launches, kdo.finalize_launches) == (2, 1)  # one narrow, one wide
+    for b in range(B):
+        solo = kops.plan_slab_kernel("dual_oracle", lanes[b], J)
+        assert solo.shift == plan.lane_shifts[b]
+        sx, sax, slin, ssq = kdo.oracle_call(solo, lam[b].contiguous(), 0.05)
+        assert all(torch.equal(x[b], y) for x, y in zip(xs, sx))
+        assert torch.equal(ax[b], sax) and torch.equal(lin[b], slin) and torch.equal(sq[b], ssq)
+    # and the plain version, lane by lane, within the kernel tolerances
+    want = kref.dual_oracle_batched_ref(st, lam, 0.05, J)
+    for x, w in zip(xs, want[0]):
+        np.testing.assert_allclose(x.float().cpu(), w.float().cpu(), atol=X_ATOL[dtype])
+    np.testing.assert_allclose(ax.cpu(), want[1].cpu(), atol=3e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [1, 8, 32, 64, 1024])
+def test_row_list_is_bitwise_the_whole_slab_rows(cuda, dtype, L):
+    J = 64
+    n = 300 if L <= 64 else 20
+    b, lam = _bucket(L, n, L, 1, J, dtype, cuda, padded_rows=3)
+    rows = np.asarray([n - 1, 0, 5, 5, n - 1, 2], np.int64)
+    plan = kops.plan_rows([b], J)
+    kdp.launches = 0
+    (x, mask, idx), (x1, _, _), (x0, _, _) = kops.fused_dual_primal_rows(
+        [b], [(0, rows), (0, rows[:1]), (0, rows[:0])], lam, 0.1, num_destinations=J, plan=plan)
+    assert kdp.launches == (1 if L <= 32 else 2)  # wide: one per request; empty: none
+    assert x.dtype == torch.float32 and x0.shape == (0, L)
+    full = kops.fused_dual_primal_call([b], lam, 0.1, num_destinations=J)[0]
+    direct = kref.dual_primal_ref(b.idx, b.coeff.float(), b.cost.float(), b.mask.float(),
+                                  lam, 0.1, J)
+    r = torch.from_numpy(rows).to(cuda)
+    assert torch.equal(x, direct[r]) and torch.equal(x.to(full.dtype), full[r])
+    assert torch.equal(x1, direct[r[:1]])
+    assert torch.equal(mask, b.mask.float()[r]) and torch.equal(idx, b.idx[r])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_batched_pool_lanes_match_solo_on_card(cuda, fused):
+    from repro_torch.instances import DeltaIngestor, InstanceDelta
+    from repro_torch.service import (
+        BatchedSolvePool, compiled_solver, device_put_instance, to_solve_result,
+    )
+
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=50, avg_degree=6.0, seed=3)
+    edges = generate_matching_instance(spec)
+    rng = np.random.default_rng(1)
+    insts = []
+    for _ in range(3):
+        ing = DeltaIngestor(edges, row_headroom=4)
+        pick = rng.permutation(edges.nnz)[:300]
+        ing.apply(InstanceDelta(update_src=edges.src[pick], update_dst=edges.dst[pick],
+                                update_values=edges.values[pick] * rng.uniform(0.9, 1.1, 300)))
+        insts.append(device_put_instance(ing.instance(), cuda))
+    cfg = MaximizerConfig(iters_per_stage=40, gammas=(10.0, 1.0, 0.1))
+    kdo.launches = kdo.finalize_launches = 0
+    batch = BatchedSolvePool(cfg, normalize=True, fused_oracle=fused).solve(insts)
+    if fused:  # one oracle call a batched iteration, plus the final one
+        calls = len(cfg.gammas) * cfg.iters_per_stage + 1
+        assert kdo.launches == kdo.finalize_launches == calls
+    for inst, r in zip(insts, batch):
+        s = to_solve_result(compiled_solver(cfg, True, fused)(
+            inst, torch.zeros(inst.dual_dim, device=cuda)))
+        rel = abs(float(r.g) - float(s.g)) / max(abs(float(s.g)), 1e-9)
+        assert rel < 1e-3
+        np.testing.assert_allclose(r.lam.cpu(), s.lam.cpu(), atol=5e-2)
+
+
+def test_served_batch_is_bitwise_direct_on_card(cuda):
+    from repro_torch.core import MaximizerConfig as Cfg
+    from repro_torch.service import Scheduler, ServiceConfig
+    from repro_torch.serving import DualStore, direct_allocations
+
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=50, avg_degree=6.0, seed=4)
+    store = DualStore(history=4)
+    sched = Scheduler(ServiceConfig(cold=Cfg(iters_per_stage=40), row_headroom=4),
+                      dual_store=store, device=cuda)
+    sched.add_tenant("t0", generate_matching_instance(spec))
+    sched.run_cadence()
+    snap = store.snapshot("t0")
+    users = np.random.default_rng(0).choice(np.flatnonzero(snap.deg > 0), size=128)
+    kdp.launches = 0
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):  # a query on its own stream, as serve's threads
+        result = store.query("t0", users)
+    wide = sum(snap.instance.buckets[ba.bucket].cost.shape[-1] > 32 for ba in result.slabs)
+    assert kdp.launches == 1 + wide
+    xs = [x.cpu().numpy() for x in direct_allocations(snap)]
+    for ba in result.slabs:
+        assert np.array_equal(ba.x, xs[ba.bucket][ba.rows])
