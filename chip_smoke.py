@@ -74,8 +74,19 @@ Phases, each printing one line before the last:
      at that size, 3 pipelined cadences while 2 hammer threads query on
      their own streams, every batch replayed bitwise (kernel 2 over the
      requested rows: one launch per query); the query's device time.
+  8. service_pdhg_path: the service CLI in process with `--engine pdhg
+     --fused-oracle`, 4 tenants at the main path's instance, a cold and a
+     warm cadence, each ONE batched PDHG solve (kernel 1 with a 1/gamma per
+     lane as the batched prox step: one launch and one finalize per batched
+     iteration), every lane against its solo PDHG solve (y, iterations,
+     restarts), the batched prox step against its bound and 4 solo steps;
+     dryrun: the solver dry run of the main path's own instance (bytes per
+     oracle call equal to the kernel table's bound bytes, the memory
+     estimate against the main path's measured peak) and the s100M-d10K
+     cells at 1 and 4 shards.
 The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
-lanes, each lane bitwise its solo call) and sweep_rows (kernel 2 over row
+lanes, each lane bitwise its solo call, with one gamma and with a gamma per
+lane) and sweep_rows (kernel 2 over row
 lists, bitwise the whole-slab call's rows at every width up to 8192).
 Every path is driven with all launch counters set to 0 just before it and
 read just after; kernel 1's entry in the kernels line gives its launches on
@@ -591,7 +602,9 @@ def phase_sweep_batched(device) -> dict:
     differ), a whole call of widths 1-32 with a bucket of 64, both sides of
     the shared-memory histogram's capacity; then the launches of one
     batched call: one narrow launch (one more per bucket wider than 32) and
-    one finalize, whatever B."""
+    one finalize, whatever B.  Each B and dtype also runs with a distinct
+    gamma per lane (the batched PDHG prox step's 1/gamma table), every lane
+    bitwise its solo call at its own gamma."""
     import numpy as np
     import torch
 
@@ -599,7 +612,8 @@ def phase_sweep_batched(device) -> dict:
     from repro_torch.kernels import dual_oracle as kdo
 
     rng = np.random.default_rng(11)
-    counts = {"cases": 0, "lanes": 0, "lanes_bitwise": 0}
+    counts = {"cases": 0, "lanes": 0, "lanes_bitwise": 0, "lanes_gamma_per_lane": 0,
+              "lanes_gamma_per_lane_bitwise": 0}
     worst = {"float32": 0.0, "bfloat16": 0.0}
     bad, shifts_seen, launches = [], set(), []
 
@@ -624,14 +638,17 @@ def phase_sweep_batched(device) -> dict:
         lanes, st = stacked(shapes, B, m, J, dtype)
         lam = torch.from_numpy(rng.random((B, m * J)).astype(np.float32)).to(device)
         plan = kdo.plan_batched(st, J)
+        per_lane = isinstance(gamma, list)
         kdo.launches = kdo.finalize_launches = 0
-        xs, ax, lin, sq = kdo.oracle_call(plan, lam, gamma)
+        xs, ax, lin, sq = kdo.oracle_call(
+            plan, lam, torch.tensor(gamma, dtype=torch.float32) if per_lane else gamma)
         launches.append({"tag": tag, "B": B, "oracle": kdo.launches,
                          "finalize": kdo.finalize_launches,
                          "wide_buckets": sum(L > 32 for _, L in shapes)})
         for b in range(B):
             solo = kdo.plan_slabs("dual_oracle", lanes[b], J)
-            sx, sax, slin, ssq = kdo.oracle_call(solo, lam[b].contiguous(), gamma)
+            sx, sax, slin, ssq = kdo.oracle_call(solo, lam[b].contiguous(),
+                                                 gamma[b] if per_lane else gamma)
             torch.cuda.synchronize()
             shifts_seen.add(solo.shift)
             same = (solo.shift == plan.lane_shifts[b]
@@ -644,6 +661,8 @@ def phase_sweep_batched(device) -> dict:
             worst[dtype] = max(worst[dtype], err)
             counts["lanes"] += 1
             counts["lanes_bitwise"] += int(same)
+            counts["lanes_gamma_per_lane"] += int(per_lane)
+            counts["lanes_gamma_per_lane_bitwise"] += int(per_lane and same)
             if not same:
                 bad.append(f"{tag} {dtype} B={B} lane {b}: max error {err}")
         counts["cases"] += 1
@@ -655,6 +674,9 @@ def phase_sweep_batched(device) -> dict:
         for dtype in ("float32", "bfloat16"):
             check(whole, B, 1, 64, dtype, 0.5, "whole call")
             check(whole + [(40, 64)], B, 2, 64, dtype, 0.05, "whole call + wide")
+            check(whole + [(40, 64)], B, 1, 64, dtype,
+                  [float(np.float32(0.013 * 3.7 ** b)) for b in range(B)],
+                  "whole call + wide, a gamma per lane")
             for J in (29_000, 29_100):
                 plan = check([(2000, 8)], B, 1, J, dtype, 1.0, f"L=8 J={J}")
                 if B == 2 and dtype == "float32":
@@ -772,7 +794,12 @@ def phase_main_path(sources: int) -> dict:
         "--fused-oracle", "--iters-per-stage", "100", "--device", "cuda",
     ])
     reset_counts()
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     r = solve.run(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     launches, width_routed = counts["dual_oracle"], counts["width_routed"]
     inst = r.instance
@@ -793,6 +820,7 @@ def phase_main_path(sources: int) -> dict:
         "narrow_launch": launch_summary(plan.launches[0]),
         "launch_counts": counts,
         "width_routed": width_routed,
+        "peak_memory_bytes": peak, "peak_memory_delta_bytes": peak - allocated0,
     }
     # the fused kernel against the plain unfused oracle on the card.  Near
     # the optimum grad = Ax - b is a small difference of large terms, so at
@@ -1798,6 +1826,251 @@ def phase_service_path(sources: int) -> dict:
             "batched_call": batched_call, "out": out}
 
 
+def phase_service_pdhg_path(sources: int) -> dict:
+    """`python -m repro_torch.launch.service --engine pdhg --fused-oracle
+    --tenants 4` in process at the main path's instance (1M sources x 10k
+    destinations, degree 8, one family, fp32; `--iters-per-stage 100`), a
+    cold and a warm cadence, each ONE batched PDHG solve of the 4 tenants.
+    Held: every oracle launch and finalize of the run is one batched prox
+    step's (1 narrow launch + 1 finalize per batched PDHG iteration, no solo
+    step); each lane's y, iteration count and restart count against its
+    solo PDHG solve of the same cadence's inputs (bitwise y expected).
+    Then, on the last cadence's stacked lanes: the batched prox step's
+    device time against its bound and against 4 solo steps, a batched
+    PDHG iteration against 4 solo ones (host clock), a check's residuals
+    over the 4 lanes, and a profiled window of batched iterations."""
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core.batched import BatchedObjective, lane_instance
+    from repro_torch.engines import pdhg as epdhg
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import service
+    from repro_torch.service import engine as seng
+
+    common = ["--sources", str(sources), "--destinations", "10000", "--avg-degree", "8",
+              "--families", "1", "--tenants", "4", "--iters-per-stage", "100",
+              "--engine", "pdhg", "--fused-oracle", "--device", "cuda"]
+    calls, solves = {"batched": 0, "solo": 0}, []
+    batched_call, solo_call = kops.fused_pdhg_step_batched_call, kops.fused_pdhg_step_call
+    batched_solve = seng._BATCHED["pdhg"]
+
+    def count_batched(*a, **k):
+        calls["batched"] += 1
+        return batched_call(*a, **k)
+
+    def count_solo(*a, **k):
+        calls["solo"] += 1
+        return solo_call(*a, **k)
+
+    def recorded(stacked, lam0, cfg, normalize, fused, sigma_sq=None):
+        raw = batched_solve(stacked, lam0, cfg, normalize, fused, sigma_sq)
+        solves.append((stacked, lam0, cfg, normalize, fused, sigma_sq, raw))
+        return raw
+
+    telemetry.set_registry(telemetry.MetricsRegistry())
+    telemetry.set_tracer(telemetry.Tracer())
+    kops.fused_pdhg_step_batched_call, kops.fused_pdhg_step_call = count_batched, count_solo
+    seng._BATCHED["pdhg"] = recorded
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        run = service.run(service.build_parser().parse_args(common + ["--cadences", "2"]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        step_calls = dict(calls)
+        per_cadence = span_seconds(telemetry.get_tracer().events())
+    finally:
+        kops.fused_pdhg_step_batched_call, kops.fused_pdhg_step_call = batched_call, solo_call
+        seng._BATCHED["pdhg"] = batched_solve
+    if run.code != 0:
+        fail(f"service CLI --engine pdhg exited {run.code}")
+    groups = [out.batched_groups for _, out, _ in run.cadences]
+    engines = sorted({r["engine"] for _, out, _ in run.cadences for r in out.reports.values()})
+    if not (all(len(g) == 1 and len(g[0]) == 4 for g in groups) and engines == ["pdhg"]
+            and len(solves) == 2):
+        fail(f"the 4 tenants were not one batched pdhg group every cadence: {groups}, "
+             f"engines {engines}, {len(solves)} batched solves")
+    iters_run = [int(raw.iters.max()) for *_, raw in solves]
+    if not (counts["dual_oracle"] == counts["dual_oracle_finalize"] == step_calls["batched"]
+            == sum(iters_run) > 0 and step_calls["solo"] == 0
+            and counts["dual_primal"] == counts["simplex_proj"] == counts["width_routed"] == 0):
+        fail(f"service pdhg launches {counts}, batched steps {step_calls}, batched "
+             f"iterations {iters_run}: expected 1 narrow launch + 1 finalize each")
+
+    # each lane against its solo PDHG solve of the same cadence
+    lanes = []
+    for k, (stacked, lam0, cfg, normalize, fused, sigma_sq, raw) in enumerate(solves):
+        for b in range(lam0.shape[0]):
+            solo = epdhg.pdhg_raw_solve(lane_instance(stacked, b), lam0[b], cfg, normalize,
+                                        fused, None if sigma_sq is None else sigma_sq[b])
+            lanes.append({
+                "cadence": k, "lane": b, "iters": int(raw.iters[b, 0]),
+                "solo_iters": int(solo.iters[0]), "restarts": int(raw.restarts[b]),
+                "solo_restarts": int(solo.restarts),
+                "y_bitwise": bool(torch.equal(raw.lam[b], solo.lam)),
+                "y_rel_l2": rel_l2(raw.lam[b], solo.lam),
+                "rel_g": rel_diff(raw.g[b], solo.g),
+                "sigma_given": sigma_sq is not None})
+    bad = [ln for ln in lanes if ln["iters"] != ln["solo_iters"]
+           or ln["restarts"] != ln["solo_restarts"] or ln["y_rel_l2"] > 1e-5]
+
+    # the batched prox step and a batched iteration on the last cadence's lanes
+    stacked, lam0, cfg, normalize, fused, sigma_sq, raw = solves[-1]
+    from repro_torch.core.batched import normalize_lanes
+
+    norm = normalize_lanes(stacked)
+    obj = BatchedObjective(norm)
+    sig = raw.sigma_sq
+    core = epdhg.PDHGBatchedCore(obj, raw.lam, cfg, epdhg.PDHGEngineConfig(),
+                                 fused_oracle=True, sigma_sq=sig)
+    B = core.B
+    state = core.initial_state()
+    step = core.step
+    y = raw.lam.contiguous()
+    xs = state.x
+    m, J = norm.num_families, norm.num_destinations
+    slots = sum(b.idx[0].numel() for b in norm.buckets)
+    byts = B * (slots * (4 * (m + 4) + 4) + 4 * m * J * 2)
+    ops = B * (sum(slab_ops(b, m) for b in obj.lanes[0].instance.buckets) + 2 * slots)
+    call = lambda: kops.fused_pdhg_step_batched_call(step, xs, y)  # noqa: E731
+    c0 = read_counts()
+    before = c0["dual_oracle"], c0["dual_oracle_finalize"]
+    got_xs, got_ax = call()
+    after = read_counts()
+    per_step = (after["dual_oracle"] - before[0], after["dual_oracle_finalize"] - before[1])
+    solo_cores = [epdhg.PDHGCore(o, raw.lam[b], cfg, epdhg.PDHGEngineConfig(), fused_oracle=True,
+                                 sigma_sq=sig[b]) for b, o in enumerate(obj.lanes)]
+    solo_steps = [c.step for c in solo_cores]
+    exact = True
+    for b, (c, st) in enumerate(zip(solo_cores, solo_steps)):
+        sx, sax = kops.fused_pdhg_step_call(st, [x[b] for x in xs], y[b].contiguous(), c.tau)
+        exact &= (torch.equal(got_ax[b], sax)
+                  and all(torch.equal(x[b], t) for x, t in zip(got_xs, sx)))
+    torch.cuda.synchronize()
+
+    def solo4():
+        for b, (c, st) in enumerate(zip(solo_cores, solo_steps)):
+            kops.fused_pdhg_step_call(st, [x[b] for x in xs], y[b], c.tau)
+
+    def plain():
+        costs = [torch.sub(cb, torch.mul(x, step.inv_tau)) for cb, x in zip(step.costs, xs)]
+        slabs = [dataclasses.replace(sl, cost=cc) for sl, cc in zip(step.slabs, costs)]
+        return kref.dual_oracle_batched_ref(slabs, y, step.inv_tau.view(-1), J)
+
+    def clock(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def iterate(c, st0, n):
+        s = st0
+        for _ in range(n):
+            s = c.one_iter(s)
+        return s
+
+    solo_states = [c.initial_state() for c in solo_cores]
+    batched_iter_ms = clock(lambda: iterate(core, state, 25), 2) / 25
+    solo_iter_ms = sum(clock(lambda c=c, s0=s0: iterate(c, s0, 25), 2) / 25
+                       for c, s0 in zip(solo_cores, solo_states))
+    batched_check_ms = clock(lambda: core._check(state), 2)
+    solo_check_ms = sum(clock(lambda c=c, s0=s0: c._check(s0), 2)
+                        for c, s0 in zip(solo_cores, solo_states))
+    step_out = {
+        "B": B, "slots_per_lane": slots, "oracle_launches_per_step": per_step[0],
+        "finalize_launches_per_step": per_step[1],
+        "bitwise_each_lane_solo_step": exact,
+        "kernel_ms": event_ms(call, 30),
+        "device_ms": device_events(call, 10)[0],
+        "oracle_device_ms": device_ms(call, 10, r"oracle_(narrow|wide|finalize)"),
+        "cost_eff_write_device_ms": device_events(lambda: step.write_cost_eff(xs), 10)[0],
+        "solo_steps_x4_ms": event_ms(solo4, 20),
+        "solo_steps_x4_device_ms": device_events(solo4, 10)[0],
+        "plain_ms": event_ms(plain, 3, warmup=1),
+        "bytes": byts, "fp32_ops": ops, **bound_of(byts, ops), "library_ms": None,
+    }
+    out = {
+        "phase": "service_pdhg_path", "sources": sources, "tenants": B, "run_s": run_s,
+        "batched_groups": groups, "engines": engines, "launch_counts": counts,
+        "batched_step_calls": step_calls["batched"], "solo_step_calls": step_calls["solo"],
+        "batched_iterations_per_cadence": iters_run,
+        "launches_per_batched_iteration": {
+            "oracle": counts["dual_oracle"] / max(1, step_calls["batched"]),
+            "finalize": counts["dual_oracle_finalize"] / max(1, step_calls["batched"])},
+        "per_cadence_s": per_cadence, "lanes_vs_solo": lanes,
+        "lanes_y_bitwise": sum(ln["y_bitwise"] for ln in lanes),
+        "batched_step": step_out,
+        "iteration_ms": {"batched": batched_iter_ms, "solo_x4": solo_iter_ms},
+        "check_ms": {"batched": batched_check_ms, "solo_x4": solo_check_ms,
+                     "residuals_batched": batched_check_ms - 25 * batched_iter_ms,
+                     "residuals_solo_x4": solo_check_ms - 25 * solo_iter_ms},
+        "profile": profile_window(lambda: iterate(core, state, 20), "service_pdhg", 20),
+    }
+    emit(out)
+    if bad:
+        fail(f"{len(bad)} batched pdhg lanes part from their solo solves: {bad}")
+    if per_step != (1, 1) or not exact:
+        fail(f"the batched prox step: launches {per_step}, bitwise each lane {exact}")
+    if not all(math.isfinite(float(v)) for v in raw.g):
+        fail(f"non-finite batched pdhg objective {raw.g}")
+    return {"launches": counts["dual_oracle"], "finalizes": counts["dual_oracle_finalize"],
+            "batched_step": step_out, "out": out}
+
+
+def phase_dryrun(main, times) -> dict:
+    """The port's solver dry run (`repro_torch.launch.dryrun`) of the main
+    path's own instance (its slabs seen as meta-device tensors): its bytes
+    per fused-oracle call against the kernel table's bound bytes (equal),
+    its grid against the plan's, and its per-shard memory estimate against
+    the main path's measured `torch.cuda.max_memory_allocated()`; then the
+    `s100M-d10K` cells at shards 1 and 4 with whether each fits."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    r = main["run"]
+    inst = r.instance
+    meta = dataclasses.replace(inst, buckets=tuple(
+        dataclasses.replace(b, **{k: torch.empty_like(getattr(b, k), device="meta")
+                                  for k in ("idx", "coeff", "cost", "mask")})
+        for b in inst.buckets), rhs=torch.empty_like(inst.rhs, device="meta"), pack_info=None)
+    rec = dryrun.solver_cell(meta, "main-path", 1, fused_oracle=True,
+                             iters=r.config.iters_per_stage)
+    plan = r.objective.kernel_plan("dual_oracle")
+    bound_bytes = times["call"]["bytes"]
+    peak = main["summary"]["peak_memory_bytes"]
+    cells = [dryrun.run_solver_cell("s100M-d10K", s, fused_oracle=True) for s in (1, 4)]
+    out = {
+        "phase": "dryrun", "main_path": {
+            "oracle_call_bytes": rec["oracle_call"]["bytes"],
+            "kernel_table_bound_bytes": bound_bytes,
+            "equal": rec["oracle_call"]["bytes"] == bound_bytes,
+            "grid_estimate": rec["oracle_call"]["grids"],
+            "grid_planned": [lp.grid for lp in plan.launches],
+            "hist_partial_bytes": rec["oracle_call"]["hist_partial_bytes"],
+            "bytes_global_per_stage": rec["bytes_global"], "roofline": rec["roofline"],
+            "memory_estimate": rec["memory"],
+            "measured_peak_bytes": peak,
+            "measured_peak_delta_bytes": main["summary"]["peak_memory_delta_bytes"],
+            "estimate_over_measured": rec["memory"]["estimate_bytes"] / peak},
+        "s100M-d10K": [{"shards": c["shards"], "memory_gb_per_shard":
+                        c["memory"]["estimate_bytes"] / 1e9, "fits": c["memory"]["fits"],
+                        "bytes_global": c["bytes_global"], "oracle_call": c["oracle_call"],
+                        "collectives": c["collectives"], "roofline": c["roofline"]}
+                       for c in cells],
+    }
+    emit(out)
+    if not out["main_path"]["equal"]:
+        fail(f"dry run bytes per call {rec['oracle_call']['bytes']} != the bound's {bound_bytes}")
+    return out
+
+
 def phase_serve_path(sources: int) -> dict:
     """`python -m repro_torch.launch.serve` in process: 2 tenants (seeds s,
     s+1) at the main path's size, `--iters-per-stage 50` (cut from the CLI's
@@ -2453,6 +2726,8 @@ def main() -> int:
     timed(phase_coo_pdhg, main_path, pdhg)
     service = timed(phase_service_path, args.sources)
     serve_p = timed(phase_serve_path, args.sources)
+    service_pdhg = timed(phase_service_pdhg_path, args.sources)
+    timed(phase_dryrun, main_path, times)
 
     def worst(sw):
         return max(v if isinstance(v, float) else max(v.values())
@@ -2476,19 +2751,26 @@ def main() -> int:
               launches_by_path={"main": main_counts["dual_oracle"],
                                 "pdhg": pdhg_counts["dual_oracle"],
                                 "cadence": cadence["launches"],
-                                "service": service["launches"]},
+                                "service": service["launches"],
+                                "service_pdhg": service_pdhg["launches"]},
               batched={k: service["batched_call"][k] for k in (
                   "B", "kernel_ms", "device_ms", "solo_call_ms_x4", "plain_ms", "bound_ms",
                   "bound_by")},
               pdhg_step={k: pdhg_step[k] for k in ("kernel_ms", "device_ms", "plain_ms",
-                                                   "bound_ms", "bound_by")}),
+                                                   "bound_ms", "bound_by")},
+              pdhg_step_batched={"launches": service_pdhg["launches"],
+                                 **{k: service_pdhg["batched_step"][k] for k in (
+                                     "B", "kernel_ms", "device_ms", "oracle_device_ms",
+                                     "solo_steps_x4_device_ms", "plain_ms", "bound_ms",
+                                     "bound_by")}}),
         entry("dual_oracle_finalize", "src/repro/kernels/ops.py:317",
               main_counts["dual_oracle_finalize"],
               times["finalize"]["lin_sq_max_abs_err"], times["finalize"], "dual_oracle",
               launches_by_path={"main": main_counts["dual_oracle_finalize"],
                                 "pdhg": pdhg_counts["dual_oracle_finalize"],
                                 "cadence": cadence["finalizes"],
-                                "service": service["finalizes"]}),
+                                "service": service["finalizes"],
+                                "service_pdhg": service_pdhg["finalizes"]}),
         entry("dual_primal", "src/repro/kernels/dual_primal.py:100",
               path2["launch_counts"]["dual_primal"],
               max(worst(sweep2), worst(sweep_rows), times23["primal"]["main_path_max_abs_err"]),

@@ -13,7 +13,9 @@ spec is rebuilt from the port's classes of the same names
 `InstanceDelta` (host numpy in both packages), a `ScatterPlan` (the port's
 holds CPU tensors) and the COO LP of the PDHG baseline.  So do the service's
 pieces: a published `DualSnapshot` (its duals, instance and maps) and a
-`ServiceConfig`.  Tenant state crosses through the checkpoint format, which
+`ServiceConfig`, and the lanes of a batched solve (`stacked_from_reference`:
+instances of one shape, or the reference's own stack, as the port's stacked
+instance).  Tenant state crosses through the checkpoint format, which
 both packages share (`repro_torch.checkpoint`).
 """
 from __future__ import annotations
@@ -38,6 +40,7 @@ __all__ = [
     "scatter_plan_from_reference",
     "service_config_from_reference",
     "snapshot_from_reference",
+    "stacked_from_reference",
     "tensor_from_numpy",
 ]
 
@@ -181,3 +184,16 @@ def snapshot_from_reference(snap, device="cuda"):
         row_of=np.asarray(snap.row_of, np.int64).copy(),
         deg=np.asarray(snap.deg, np.int64).copy(), ready=ready,
     )
+
+
+def stacked_from_reference(insts, device="cuda") -> BucketedInstance:
+    """The port's stacked instance (a leading lane dimension on every slab
+    and on the rhs, `core.batched.stack_lanes`) of the reference's
+    instances of one shape, or of one reference instance already stacked
+    (`repro.service.pool.stack_instances`), whose leaves convert as they
+    are."""
+    from repro_torch.core.batched import stack_lanes
+
+    if isinstance(insts, (list, tuple)):
+        return stack_lanes([instance_from_reference(i, device) for i in insts])
+    return instance_from_reference(insts, device)

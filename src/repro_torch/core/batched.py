@@ -13,16 +13,25 @@ sigma_max(A)^2 estimate.  The oracle of a batched iteration is:
     (`kernels.ops.fused_dual_oracle_batched_call`): on the card one oracle
     launch for every lane and bucket of width <= 32 and one finalize, each
     lane bitwise its own solo call;
-  * unfused: each lane's own `MatchingObjective.calculate` (the plain ops
-    over that lane's slabs), so each lane's oracle is bitwise its solo one.
+  * unfused: the plain oracle as one pass over the [B, ...] slabs: A^T lam
+    a gather at lane-offset indices (`b*m*J + k*J + idx`), the candidate
+    and the projection over every lane at once, A x ONE `binned_segment_sum`
+    per bucket over lane-offset bins planned once per objective
+    (`lane_segment_plan`), whose every bin holds its slots in the solo
+    order.  The scalars of a lane (c'x, ||x||^2, lam'grad, and the power
+    iteration's norms) are reduced over that lane's slice by the solo
+    call's own op, since a reduction over the lane axis sums in another
+    order.  So each lane's oracle and power iteration are bitwise its solo
+    one (on the card too; rows wider than 32 are projected lane by lane
+    there, because the card's cumsum chunks a row by the row count).
 
 Early stopping follows JAX's batched `while_loop`: the batch runs chunk by
 chunk until every lane has converged (or the budget is spent); a lane that
 has converged keeps its carry and its traces frozen while the others run
 on (its oracle is still evaluated and its result discarded, as the
 reference's vmapped loop does), and `iters_used` is per lane.  The host
-waits once per chunk.  The power iteration and the Jacobi normalisation are
-per lane (each lane's own objective).
+waits once per chunk.  The Jacobi normalisation runs once per solve, lane
+by lane (`normalize_lanes`).
 """
 from __future__ import annotations
 
@@ -31,15 +40,29 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core import objective as cobj
 from repro_torch.core.maximizer import MaximizerConfig, StageStats, step_size
-from repro_torch.core.objective import DualEval, MatchingObjective, normalize_rows_traced
-from repro_torch.instances.buckets import Bucket, BucketedInstance
+from repro_torch.core.objective import (
+    DualEval,
+    MatchingObjective,
+    SegmentPlan,
+    _vdot,
+    binned_segment_sum,
+    inv_gamma,
+    lane_segment_plan,
+    normalize_rows_traced,
+)
+from repro_torch.core.projections import UnitSimplexProjection
+from repro_torch.instances.buckets import Bucket, BucketedInstance, dequantize_bucket
 
 __all__ = [
     "BatchedObjective",
     "batched_continuation",
+    "gather_lanes",
     "lane_instance",
+    "lane_offsets",
     "normalize_lanes",
+    "project_lanes",
     "stack_lanes",
 ]
 
@@ -78,11 +101,43 @@ def stack_lanes(insts: Sequence[BucketedInstance]) -> BucketedInstance:
                                rhs=torch.stack([inst.rhs for inst in insts]), pack_info=None)
 
 
+def gather_lanes(coeff: torch.Tensor, idx_off: torch.Tensor, lam: torch.Tensor,
+                 J: int) -> torch.Tensor:
+    """(A^T lam) of one stacked slab ([B, m, n, L] coeff) in every lane,
+    [B, n, L]: the solo `gather_at_lam` arithmetic (family products summed
+    in family order) at lane-offset indices `idx_off` = b*m*J + idx (int64
+    [B, n, L]) into the flat [B*m*J] duals."""
+    flat = lam.reshape(-1)
+    atl = coeff[:, 0] * flat[idx_off]
+    for k in range(1, coeff.shape[1]):
+        atl = atl + coeff[:, k] * flat[idx_off + k * J]
+    return atl
+
+
+def lane_offsets(idx: torch.Tensor, mJ: int) -> torch.Tensor:
+    """`idx` [B, n, L] offset by its lane: b*mJ + idx, int64."""
+    lanes = torch.arange(idx.shape[0], device=idx.device, dtype=torch.int64)
+    return idx.long() + lanes.view(-1, *[1] * (idx.dim() - 1)) * mJ
+
+
+def project_lanes(proj, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """`proj` over the rows of every lane of a [B, n, L] slab at once, each
+    lane bitwise its solo projection.  The plain simplex projection of rows
+    wider than 32 on the card goes lane by lane: PyTorch's CUDA cumsum
+    chunks a row by the number of rows, so a [B*n, L] scan may round apart
+    from the solo [n, L] one."""
+    if isinstance(proj, UnitSimplexProjection) and v.is_cuda and v.shape[-1] > 32:
+        return torch.stack([proj(v[b], mask[b]) for b in range(v.shape[0])])
+    return proj(v, mask)
+
+
 class BatchedObjective:
     """The dual oracle of B stacked instances: `calculate(lam [B, m*J],
     gamma)` returns a `DualEval` whose every field has the lane dimension
     (g, c'x and the ridge term [B]; grad and A x [B, m*J]; x [B, n, L] per
-    bucket).  `gamma` is shared by the lanes."""
+    bucket).  `gamma` is shared by the lanes.  The lanes share the
+    formulation (`stack_lanes` keeps the first instance's), so lane 0's
+    projections and term scales are every lane's."""
 
     def __init__(self, stacked: BucketedInstance, *, fused_oracle: bool = False):
         self.instance = stacked
@@ -91,6 +146,24 @@ class BatchedObjective:
                       for b in range(stacked.rhs.shape[0])]
         self._plan = None
         self._planned = False
+        self._idx_off: Optional[tuple[torch.Tensor, ...]] = None
+        self._seg: Optional[tuple[SegmentPlan, ...]] = None
+
+    @property
+    def num_lanes(self) -> int:
+        return len(self.lanes)
+
+    @property
+    def _buckets(self) -> tuple[Bucket, ...]:
+        """fp32 compute views of the stacked buckets (fp32 storage returns
+        the instance's own)."""
+        return tuple(dequantize_bucket(b) for b in self.instance.buckets)
+
+    def _proj(self, i: int):
+        return self.lanes[0]._proj(i)
+
+    def _scaled_cost(self, b: Bucket) -> torch.Tensor:
+        return self.lanes[0]._scaled_cost(b)
 
     def kernel_plan(self):
         """The batched oracle's plan over the stacked slabs, built once on
@@ -106,16 +179,77 @@ class BatchedObjective:
             self._planned = True
         return self._plan
 
+    # -- the plain oracle over every lane at once ------------------------------
+
+    def lane_indices(self) -> tuple[torch.Tensor, ...]:
+        """Each bucket's idx offset by its lane, `b*m*J + idx` (int64
+        [B, n, L]), built once: index the flat [B*m*J] duals."""
+        if self._idx_off is None:
+            inst = self.instance
+            mJ = inst.num_families * inst.num_destinations
+            self._idx_off = tuple(lane_offsets(b.idx, mJ) for b in inst.buckets)
+        return self._idx_off
+
+    def segment_plans(self) -> tuple[SegmentPlan, ...]:
+        """Each bucket's `lane_segment_plan`, sorted once per objective."""
+        if self._seg is None:
+            inst = self.instance
+            self._seg = tuple(lane_segment_plan(b.idx, inst.num_families,
+                                                inst.num_destinations)
+                              for b in inst.buckets)
+        return self._seg
+
+    def gather_at_lam(self, i: int, coeff: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+        """(A^T lam) of bucket i in every lane, [B, n, L]: the solo
+        `gather_at_lam` arithmetic (family products summed in family order)
+        at lane-offset indices."""
+        return gather_lanes(coeff, self.lane_indices()[i], lam, self.instance.num_destinations)
+
+    def primal_candidate(self, lam: torch.Tensor, gamma: float) -> tuple[torch.Tensor, ...]:
+        """x*_gamma(lam) per bucket of every lane, [B, n, L] each (the solo
+        `MatchingObjective.primal_candidate` on the plain path)."""
+        lane0 = self.lanes[0]
+        ginv = inv_gamma(lane0._scaled_gamma(gamma))
+        buckets = self._buckets
+        vs = [-(self.gather_at_lam(i, b.coeff, lam) + self._scaled_cost(b)) * ginv
+              for i, b in enumerate(buckets)]
+        projs = [self._proj(i) for i in range(len(buckets))]
+        if (isinstance(projs[0], UnitSimplexProjection) and projs[0].use_kernel
+                and len(set(projs)) == 1):
+            # the simplex kernel's wide rows scan in chunks set by the row
+            # count too: one whole call per lane, on the lane's own plan
+            from repro_torch.kernels import ops as kops
+
+            per = [kops.fused_project_simplex_call(
+                       [v[b] for v in vs], [bk.mask[b] for bk in buckets],
+                       radius=projs[0].radius, inequality=projs[0].inequality,
+                       plan=lane.kernel_plan("simplex_proj"))
+                   for b, lane in enumerate(self.lanes)]
+            return tuple(torch.stack(xs) for xs in zip(*per))
+        return tuple(project_lanes(p, v, b.mask) for p, v, b in zip(projs, vs, buckets))
+
+    def apply_A(self, x_slabs) -> torch.Tensor:
+        """A x of every lane, [B, m*J]: one fixed-order segment sum per
+        bucket over the lane-offset bins."""
+        inst = self.instance
+        B, J = self.num_lanes, inst.num_destinations
+        ax = torch.zeros((B, inst.num_families * J),
+                         dtype=torch.promote_types(x_slabs[0].dtype, torch.float32),
+                         device=inst.device)
+        for b, x, plan in zip(self._buckets, x_slabs, self.segment_plans()):
+            contrib = b.coeff * (x * b.mask)[:, None]
+            part = binned_segment_sum(b.idx, contrib.reshape(-1, *contrib.shape[2:]), J, plan)
+            ax = ax + part.reshape(B, -1)
+        return ax
+
+    def apply_AT(self, lam: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """A^T lam per bucket of every lane, [B, n, L] each."""
+        return tuple(self.gather_at_lam(i, b.coeff, lam) * b.mask
+                     for i, b in enumerate(self._buckets))
+
     def calculate(self, lam: torch.Tensor, gamma: float) -> DualEval:
         if not self.fused_oracle:
-            evs = [o.calculate(lam[b], gamma) for b, o in enumerate(self.lanes)]
-            stack = lambda f: torch.stack([f(e) for e in evs])
-            return DualEval(
-                g=stack(lambda e: e.g), grad=stack(lambda e: e.grad),
-                x_slabs=tuple(torch.stack(xs) for xs in zip(*(e.x_slabs for e in evs))),
-                primal_linear=stack(lambda e: e.primal_linear),
-                primal_ridge=stack(lambda e: torch.as_tensor(e.primal_ridge)),
-                ax=stack(lambda e: e.ax))
+            return self._calculate_plain(lam, gamma)
         from repro_torch.kernels import ops as kops
 
         proj = self.lanes[0]._assert_fused_ok("fused dual oracle")
@@ -129,9 +263,38 @@ class BatchedObjective:
         return DualEval(g=g, grad=grad, x_slabs=x_slabs, primal_linear=lin,
                         primal_ridge=ridge, ax=ax)
 
+    def _calculate_plain(self, lam: torch.Tensor, gamma: float) -> DualEval:
+        """The unfused oracle of every lane in one pass over the slabs; each
+        lane's scalars by its solo call's ops on its slices."""
+        x_slabs = self.primal_candidate(lam, gamma)
+        ax = self.apply_A(x_slabs)
+        grad = ax - self.instance.rhs
+        lins, ridges, gs = [], [], []
+        for b, lane in enumerate(self.lanes):
+            lin, ridge = lane._primal_terms(tuple(x[b] for x in x_slabs), gamma)
+            lins.append(lin)
+            ridges.append(torch.as_tensor(ridge))
+            gs.append(lin + ridge + _vdot(lam[b], grad[b]))
+        return DualEval(g=torch.stack(gs), grad=grad, x_slabs=x_slabs,
+                        primal_linear=torch.stack(lins), primal_ridge=torch.stack(ridges),
+                        ax=ax)
+
     def power_iteration(self, seed: int, iters: int = 30) -> torch.Tensor:
-        """Each lane's sigma_max(A)^2 estimate: [B]."""
-        return torch.stack([o.power_iteration(seed, iters=iters) for o in self.lanes])
+        """Each lane's sigma_max(A)^2 estimate, [B]: the solo power iteration
+        (`MatchingObjective.power_iteration`, the same start vector in every
+        lane) over all lanes at once, each lane's norm by its own reduction."""
+        inst = self.instance
+        u0 = cobj.start_vector(inst.dual_dim, seed, inst.device)
+        u = u0.expand(self.num_lanes, -1).contiguous()
+        norms = None
+        for _ in range(iters):
+            u = self.apply_A(self.apply_AT(u / self._lane_norms(u)[:, None]))
+            norms = self._lane_norms(u)
+        return norms
+
+    @staticmethod
+    def _lane_norms(u: torch.Tensor) -> torch.Tensor:
+        return torch.stack([torch.linalg.vector_norm(u[b]) for b in range(u.shape[0])])
 
 
 def normalize_lanes(stacked: BucketedInstance) -> BucketedInstance:

@@ -57,6 +57,7 @@ __all__ = [
     "binned_segment_sum",
     "gather_at_lam",
     "inv_gamma",
+    "lane_segment_plan",
     "normalize_rows",
     "normalize_rows_traced",
     "segment_plan",
@@ -107,9 +108,17 @@ class SegmentPlan(NamedTuple):
 
 def segment_plan(idx: torch.Tensor, m: int, J: int) -> SegmentPlan:
     """Sort the family-offset bins (idx + k*J) of one slab once."""
-    offs = torch.arange(m, device=idx.device, dtype=torch.int64)[:, None] * J
-    seg = (idx.reshape(1, -1).long() + offs).reshape(-1)
-    counts = torch.bincount(seg, minlength=m * J)
+    return lane_segment_plan(idx[None], m, J)
+
+
+def lane_segment_plan(idx: torch.Tensor, m: int, J: int) -> SegmentPlan:
+    """`segment_plan` over the lanes of a stacked slab (idx [B, n, L], the
+    tenant axis): the slot (b, k, s) goes to bin `(b*m + k)*J + idx[b, s]`,
+    sorted stably, so every bin holds its slots in the solo plan's order."""
+    B = idx.shape[0]
+    offs = torch.arange(B * m, device=idx.device, dtype=torch.int64).view(B, m, 1) * J
+    seg = (idx.reshape(B, 1, -1).long() + offs).reshape(-1)
+    counts = torch.bincount(seg, minlength=B * m * J)
     return SegmentPlan(torch.argsort(seg, stable=True),
                        torch.cat([counts.new_zeros(1), counts.cumsum(0)]))
 

@@ -35,6 +35,17 @@ restart decisions are host integers; the adaptive decision reads two merits
 from the device once per check, where the early stop waits anyway.  tau and
 sig are fp32 values read once per solve (one host sync).
 
+The batched solve (`pdhg_raw_solve_batched`, the port of the reference's
+`jax.vmap(pdhg_raw_solve)` over a stack of same-shape instances) runs one
+iteration loop over every lane: each lane has its own tau and sig (from its
+own sigma_max(A)^2), restart state and stop vote; the fused prox step is ONE
+batched oracle call with a 1/gamma per lane (`ops.fused_pdhg_step_batched_call`),
+the dense path one batched product, the unfused path one pass over the
+stacked slabs (`core.batched`).  The host reads every lane's merits and
+residuals in one sync per check.  A lane that has converged keeps its state
+and traces frozen while the others run on, as JAX's batched `while_loop`
+does, and its iteration count is its own.
+
 Warm starts: `lam0` is the previous cadence's duals and the primal starts at
 `x0 = Proj_C(-(A'lam0 + c) / gamma_floor)`.  PDHG solves the unsmoothed LP:
 `ridge_weight` never enters the iteration.
@@ -42,12 +53,20 @@ Warm starts: `lam0` is the previous cadence's duals and the primal starts at
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.batched import (
+    BatchedObjective,
+    gather_lanes,
+    lane_offsets,
+    normalize_lanes,
+    project_lanes,
+)
 from repro_torch.core.maximizer import (
     MaximizerConfig,
     SolveResult,
@@ -70,7 +89,9 @@ __all__ = [
     "PDHG_ENGINE",
     "PDHGEngineConfig",
     "RESTART_SCHEMES",
+    "PDHGBatchedCore",
     "pdhg_raw_solve",
+    "pdhg_raw_solve_batched",
     "solve_pdhg_sharded",
 ]
 
@@ -135,19 +156,20 @@ def _use_dense(buckets, num_destinations: int, pcfg: PDHGEngineConfig) -> bool:
     return merged * num_destinations <= pcfg.dense_max_cells and merged <= 4 * max(slots, 1)
 
 
-def _merge_buckets(buckets, costs) -> Bucket:
+def _merge_buckets(buckets, costs, row_axis: int = 0) -> Bucket:
     """Per-length bucket slabs as one [rows, L_max] pseudo-bucket; pad
-    entries carry mask 0 and coeff 0, like the pad slots of every bucket."""
+    entries carry mask 0 and coeff 0, like the pad slots of every bucket.
+    Stacked slabs ([B, ...], the batched solve) merge along `row_axis` 1."""
     l_max = max(int(b.idx.shape[-1]) for b in buckets)
 
     def padded(a):
         return F.pad(a, (0, l_max - a.shape[-1]))
 
     return Bucket(
-        idx=torch.cat([padded(b.idx) for b in buckets]).to(torch.int32),
-        coeff=torch.cat([padded(b.coeff) for b in buckets], dim=1),
-        cost=torch.cat([padded(c) for c in costs]).float(),
-        mask=torch.cat([padded(b.mask) for b in buckets]).float(),
+        idx=torch.cat([padded(b.idx) for b in buckets], dim=row_axis).to(torch.int32),
+        coeff=torch.cat([padded(b.coeff) for b in buckets], dim=row_axis + 1),
+        cost=torch.cat([padded(c) for c in costs], dim=row_axis).float(),
+        mask=torch.cat([padded(b.mask) for b in buckets], dim=row_axis).float(),
         length=l_max,
     )
 
@@ -443,6 +465,370 @@ class PDHGCore:
             iters=torch.tensor([checks_used * self.inner], dtype=torch.int32),
             restarts=torch.tensor(final.restarts, dtype=torch.int32),
         )
+
+
+# ---------------------------------------------------------------------------
+# The batched solve: every lane of a stack of same-shape instances at once.
+# ---------------------------------------------------------------------------
+
+
+def _lane_select(flags, device):
+    """Host flags, one per lane, as what `_pick` takes: True or False when
+    every flag agrees, else a [B] bool tensor on `device`, copied without
+    waiting for the device (from pinned memory on the card)."""
+    if all(flags) or not any(flags):
+        return bool(flags[0])
+    sel = torch.tensor(flags, dtype=torch.bool)
+    if device.type == "cuda":
+        sel = sel.pin_memory()
+    return sel.to(device, non_blocking=True)
+
+
+def _pick(sel, a, b):
+    """Lane b of `a` where the lane is selected, else of `b`
+    (`_lane_select`); without a copy when every lane agrees."""
+    if a is None or sel is True:
+        return a
+    if sel is False:
+        return b
+    return torch.where(sel.view(-1, *[1] * (a.dim() - 1)), a, b)
+
+
+def _keep(flags, sel, new, old):
+    """The state `new` in the lanes of `flags` (`sel` on the device) and
+    `old` elsewhere: tensors lane by lane, per-lane host lists entry by
+    entry; shared host scalars (the iteration counter, Halpern's t) are
+    the running lanes' (`new`)."""
+    if isinstance(new, torch.Tensor):
+        return _pick(sel, new, old)
+    if isinstance(new, list):
+        return [n if f else o for f, n, o in zip(flags, new, old)]
+    if isinstance(new, tuple):
+        parts = [_keep(flags, sel, n, o) for n, o in zip(new, old)]
+        return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
+    return new
+
+
+def _lane_div(s: torch.Tensor, wfs) -> torch.Tensor:
+    """s / wf_b in every lane, each lane divided by its Python float as the
+    solo solve divides (PyTorch's CUDA division by a Python scalar is a
+    product with its fp32 reciprocal, by a tensor a true division)."""
+    if len(set(wfs)) == 1:
+        return s / wfs[0]
+    return torch.stack([s[b] / wf for b, wf in enumerate(wfs)])
+
+
+class _BState(NamedTuple):
+    x: tuple  # [B, n, L] primal slabs (one merged [B, rows, L_max] on the dense path)
+    y: torch.Tensor  # [B, m*J]
+    ax: Optional[torch.Tensor]  # [B, m*J] (None on the dense path)
+    it: int  # iterations of the running lanes, for the fixed-cadence schemes
+    restarts: list  # per lane
+    extra: tuple  # the restart scheme's state; per-lane host values as lists
+
+
+class PDHGBatchedCore:
+    """The PDHG solve of every lane of a stacked instance (`core.batched`):
+    `PDHGCore`'s iteration with a lane axis, the semantics of the
+    reference's `jax.vmap(pdhg_raw_solve)`.  Every lane is its solo solve
+    (`PDHGCore`) bit for bit on the bucketed paths: the slab work runs over
+    all lanes at once in the solo arithmetic, each lane's scalars (norms,
+    dots, merits) by the solo ops on its own slices, and each lane's
+    decisions on the host as the solo solve takes them.  Single process."""
+
+    def __init__(
+        self,
+        obj: BatchedObjective,
+        lam0: torch.Tensor,  # [B, m*J]
+        cfg: MaximizerConfig,
+        pcfg: PDHGEngineConfig,
+        *,
+        fused_oracle: bool,
+        sigma_sq,  # [B]
+    ):
+        inst = obj.instance
+        self.obj, self.lam0, self.cfg, self.pcfg = obj, lam0, cfg, pcfg
+        self.B = B = obj.num_lanes
+        self.m, self.J = m, J = inst.num_families, inst.num_destinations
+        proj = _uniform_simplex(obj.lanes[0])
+        self.radius, self.inequality = proj.radius, proj.inequality
+
+        buckets = obj._buckets  # stacked fp32 compute views
+        costs = tuple(obj._scaled_cost(b) for b in buckets)
+        self.rhs = inst.rhs.float()
+        cm = [c * b.mask for b, c in zip(buckets, costs)]
+        self.rhs_norm = [torch.linalg.vector_norm(self.rhs[b]) for b in range(B)]
+        self.c_norm = [torch.sqrt(sum(_vdot(t[b], t[b]) for t in cm)) for b in range(B)]
+
+        # each lane's steps as fp32 values, read once (one host sync per solve)
+        self.sigma_sq = [_f32(v) for v in torch.as_tensor(sigma_sq).float().tolist()]
+        self.taus, self.sigs = [], []
+        for s2 in self.sigma_sq:
+            sigma = np.sqrt(np.maximum(s2, _f32(1e-20)))
+            self.taus.append(float(_f32(pcfg.step_margin * pcfg.step_ratio) / sigma))
+            self.sigs.append(float(_f32(pcfg.step_margin / pcfg.step_ratio) / sigma))
+        dev = self.rhs.device
+        self.tau_t = torch.tensor(self.taus, dtype=torch.float32, device=dev).view(B, 1, 1)
+        self.sig_t = torch.tensor(self.sigs, dtype=torch.float32, device=dev).view(B, 1)
+
+        self.dense = _use_dense(obj.lanes[0]._buckets, J, pcfg)
+        self.step = None
+        if self.dense:
+            self.split_shapes = [(int(b.idx.shape[1]), int(b.idx.shape[-1])) for b in buckets]
+            self.mb = _merge_buckets(buckets, costs, row_axis=1)
+            self.onehot = torch.stack([
+                _dense_onehot(SimpleNamespace(idx=self.mb.idx[b], mask=self.mb.mask[b]), J)
+                for b in range(B)])
+            buckets, costs = (self.mb,), (self.mb.cost,)
+            radius, inequality = self.radius, self.inequality
+            self.projs = [lambda z, mask: project_simplex_cmp(z, mask, radius,
+                                                              inequality=inequality)]
+            self.offsets = (lane_offsets(self.mb.idx, m * J),)
+        else:
+            self.projs = [obj._proj(i) for i in range(len(buckets))]
+            self.offsets = obj.lane_indices()
+            if fused_oracle:
+                self.step = kops.plan_pdhg_step_batched(
+                    buckets, costs, self.taus, num_destinations=J, radius=self.radius,
+                    inequality=self.inequality)
+        self.buckets, self.costs = buckets, costs
+        self.cost_masked = tuple(c * b.mask for b, c in zip(buckets, costs))
+
+    def _gather(self, i: int, b: Bucket, y: torch.Tensor) -> torch.Tensor:
+        return gather_lanes(b.coeff, self.offsets[i], y, self.J)
+
+    def _dense_apply_a(self, xs: torch.Tensor) -> torch.Tensor:
+        contrib = (self.mb.coeff * xs[:, None]).reshape(self.B, self.m, -1)
+        return (contrib @ self.onehot.transpose(1, 2)).reshape(self.B, -1)
+
+    def primal_step(self, x, y):
+        """(x+, A x+) of every lane, or on the dense path (x+, A(2 x+ - x))."""
+        if self.dense:
+            mb = self.mb
+            z = x[0] - self.tau_t * (self._gather(0, mb, y) + mb.cost)
+            xn = self.projs[0](z, mb.mask)
+            return (xn,), self._dense_apply_a(2.0 * xn - x[0])
+        if self.step is not None:
+            return kops.fused_pdhg_step_batched_call(self.step, x, y)
+        new = tuple(
+            project_lanes(self.projs[i], xs - self.tau_t * (self._gather(i, b, y) + c), b.mask)
+            for i, (b, c, xs) in enumerate(zip(self.buckets, self.costs, x)))
+        return new, self.obj.apply_A(new)
+
+    def residuals(self, x, y, ax):
+        """(primal_obj, dual_obj, rel_primal, rel_dual, rel_gap), each [B]:
+        the slab work over every lane at once, each lane's sums by the solo
+        ops on its slices."""
+        viol = torch.clamp_min(ax - self.rhs, 0.0)
+        pgs, duals = [], []
+        for i, (b, c, xs) in enumerate(zip(self.buckets, self.costs, x)):
+            r = self._gather(i, b, y) + c
+            pgs.append(xs - project_lanes(self.projs[i], xs - r, b.mask))
+            rmin = torch.where(b.mask > 0, r, torch.inf).amin(dim=-1)
+            has = (b.mask > 0).any(dim=-1)
+            contrib = self.radius * (torch.clamp_max(rmin, 0.0) if self.inequality else rmin)
+            duals.append(torch.where(has, contrib, 0.0))
+        out = []
+        for ln in range(self.B):
+            zero = torch.zeros((), dtype=torch.float32, device=y.device)
+            pobj_loc = dr_loc = dual_loc = zero
+            for cm, xs, pg, d in zip(self.cost_masked, x, pgs, duals):
+                pobj_loc = pobj_loc + _vdot(cm[ln], xs[ln])
+                dr_loc = dr_loc + _vdot(pg[ln], pg[ln])
+                dual_loc = dual_loc + d[ln].sum()
+            pr = torch.linalg.vector_norm(viol[ln]) / (1.0 + self.rhs_norm[ln])
+            pobj = pobj_loc
+            dobj = dual_loc - _vdot(self.rhs[ln], y[ln])
+            dr = torch.sqrt(torch.clamp_min(dr_loc, 0.0)) / (1.0 + self.c_norm[ln])
+            gap = (pobj - dobj).abs() / (1.0 + pobj.abs() + dobj.abs())
+            out.append((pobj, dobj, pr, dr, gap))
+        return tuple(torch.stack(v) for v in zip(*out))
+
+    def one_iter(self, state: _BState) -> _BState:
+        x, y, ax, it, restarts, extra = state
+        scheme, every, dense = self.pcfg.restart, int(self.pcfg.restart_every), self.dense
+        xn, axn = self.primal_step(x, y)
+        if dense:
+            yn = torch.clamp_min(y + self.sig_t * (axn - self.rhs), 0.0)
+            axn = None
+        else:
+            yn = torch.clamp_min(y + self.sig_t * (2.0 * axn - ax - self.rhs), 0.0)
+        it1 = it + 1 if scheme in ("ergodic", "halpern") else it
+        if scheme == "none":
+            return _BState(xn, yn, axn, it1, restarts, extra)
+        if scheme in ("ergodic", "adaptive"):
+            xs_sum, y_sum, ax_sum, win = extra[:4]
+            xs_sum = tuple(s + v for s, v in zip(xs_sum, xn))
+            y_sum, win = y_sum + yn, [w + 1 for w in win]
+            ax_sum = None if dense else ax_sum + axn
+            if scheme == "ergodic" and it1 % every == 0:
+                wfs = [float(max(w, 1)) for w in win]
+                xn = tuple(_lane_div(s, wfs) for s in xs_sum)
+                yn = _lane_div(y_sum, wfs)
+                if not dense:
+                    axn = _lane_div(ax_sum, wfs)
+                xs_sum = tuple(torch.zeros_like(s) for s in xs_sum)
+                y_sum = torch.zeros_like(y_sum)
+                ax_sum = None if dense else torch.zeros_like(ax_sum)
+                win, restarts = [0] * self.B, [r + 1 for r in restarts]
+            return _BState(xn, yn, axn, it1, restarts, (xs_sum, y_sum, ax_sum, win) + extra[4:])
+        xa, ya, axa, t = extra
+        w = (t + _f32(1.0)) / (t + _f32(2.0))
+        w, w1 = float(w), float(_f32(1.0) - w)
+        xn = tuple(w * v + w1 * a for v, a in zip(xn, xa))
+        yn = w * yn + w1 * ya
+        if not dense:
+            axn = w * axn + w1 * axa
+        if it1 % every == 0:
+            return _BState(xn, yn, axn, it1, [r + 1 for r in restarts],
+                           (xn, yn, axn, _f32(0.0)))
+        return _BState(xn, yn, axn, it1, restarts, (xa, ya, axa, t + _f32(1.0)))
+
+    def _check(self, state: _BState):
+        """`check_every` iterations, then the residuals and the adaptive
+        restart of every lane: `(state, traces [4][B], stop [B])`, with
+        every lane's merits and residuals read in one host sync."""
+        for _ in range(self.inner):
+            state = self.one_iter(state)
+        x, y, ax, it, restarts, extra = state
+        dense = self.dense
+        if dense:
+            ax = self._dense_apply_a(x[0])
+        tol = self.cfg.tol_grad if self.cfg.tol_grad is not None else self.cfg.tol_viol
+        if self.pcfg.restart == "adaptive":
+            xs_sum, y_sum, ax_sum, win, merit_last = extra
+            wfs = [float(max(w, 1)) for w in win]
+            x_avg = tuple(_lane_div(s, wfs) for s in xs_sum)
+            y_avg = _lane_div(y_sum, wfs)
+            ax_avg = self._dense_apply_a(x_avg[0]) if dense else _lane_div(ax_sum, wfs)
+            res_c = self.residuals(x, y, ax)
+            res_a = self.residuals(x_avg, y_avg, ax_avg)
+            merit = lambda r: torch.maximum(r[4], torch.maximum(r[2], r[3]))  # noqa: E731
+            host = torch.stack([merit(res_c), merit(res_a), *res_c[2:], *res_a[2:]]).tolist()
+            do, adopt, kept = [], [], []
+            restarts, merit_last, win = list(restarts), list(merit_last), list(win)
+            for ln in range(self.B):
+                merit_c, merit_a = _f32(host[0][ln]), _f32(host[1][ln])
+                merit_cand = min(merit_a, merit_c)
+                d = bool(merit_cand <= _f32(self.pcfg.restart_threshold) * merit_last[ln])
+                a = d and merit_a < merit_c
+                do.append(d)
+                adopt.append(a)
+                kept.append([host[k][ln] for k in ((5, 6, 7) if a else (2, 3, 4))])
+                if d:
+                    win[ln], merit_last[ln], restarts[ln] = 0, merit_cand, restarts[ln] + 1
+            adopt, keep = (_lane_select(f, y.device) for f in (adopt, [not d for d in do]))
+            x = tuple(_pick(adopt, a, c) for a, c in zip(x_avg, x))
+            y, ax = _pick(adopt, y_avg, y), _pick(adopt, ax_avg, ax)
+            res = tuple(_pick(adopt, a, c) for a, c in zip(res_a, res_c))
+            xs_sum = tuple(_pick(keep, s, torch.zeros_like(s)) for s in xs_sum)
+            y_sum = _pick(keep, y_sum, torch.zeros_like(y_sum))
+            ax_sum = None if dense else _pick(keep, ax_sum, torch.zeros_like(ax_sum))
+            extra = (xs_sum, y_sum, ax_sum, win, merit_last)
+        else:
+            res = self.residuals(x, y, ax)
+            kept = (list(zip(*torch.stack(res[2:]).tolist())) if tol is not None
+                    else [None] * self.B)
+        if tol is None:
+            stop = [False] * self.B
+        else:
+            t = float(_f32(tol))
+            stop = [pr <= t and dr <= t and gap <= t for pr, dr, gap in kept]
+        po, _, pr, dr, gap = res
+        traces = tuple(v.float() for v in (po, dr, pr, gap))
+        return _BState(x, y, None if dense else ax, it, restarts, extra), traces, stop
+
+    @property
+    def inner(self) -> int:
+        total = int(self.cfg.total_iter_budget)
+        return max(1, min(int(self.cfg.check_every), total))
+
+    def initial_state(self) -> _BState:
+        """Every lane's warm-start point: y0 = lam0, x0 = Proj_C(-(A'y0 + c) / gamma_floor)."""
+        y0 = self.lam0.float()
+        x0 = tuple(xs.float() for xs in self.obj.primal_candidate(y0, self.cfg.gammas[-1]))
+        if self.dense:
+            l_max = self.mb.idx.shape[-1]
+            x0 = (torch.cat([F.pad(xs, (0, l_max - xs.shape[-1])) for xs in x0], dim=1),)
+            ax0 = None
+        else:
+            ax0 = self.obj.apply_A(x0).float()
+        scheme, B = self.pcfg.restart, self.B
+        if scheme in ("ergodic", "adaptive"):
+            extra = (tuple(torch.zeros_like(xs) for xs in x0), torch.zeros_like(y0),
+                     None if self.dense else torch.zeros_like(ax0), [0] * B)
+            if scheme == "adaptive":
+                extra = extra + ([_f32(np.inf)] * B,)
+        elif scheme == "halpern":
+            extra = (x0, y0, ax0, _f32(0.0))
+        else:
+            extra = ()
+        return _BState(x0, y0, ax0, 0, [0] * B, extra)
+
+    def run(self) -> RawSolve:
+        """The checks of every lane until each has stopped or the budget is
+        spent; a stopped lane's state and traces stay as they were."""
+        total = int(self.cfg.total_iter_budget)
+        n_checks = -(-total // self.inner)
+        B, state = self.B, self.initial_state()
+        done, chunks, cols = [False] * B, [0] * B, []
+        for _ in range(n_checks):
+            active = [not d for d in done]
+            new, traces, stop = self._check(state)
+            state = _keep(active, _lane_select(active, state.y.device), new, state)
+            cols.append(torch.stack(traces))  # [4, B]; a stopped lane's are backfilled
+            chunks = [c + int(a) for c, a in zip(chunks, active)]
+            done = [d or (a and s) for d, a, s in zip(done, active, stop)]
+            if all(done):
+                break
+        bufs = torch.stack(cols, dim=-1)  # [4, B, checks run]
+        used = torch.tensor(chunks, device=bufs.device)
+        pos = torch.arange(n_checks, device=bufs.device)
+        bufs = F.pad(bufs, (0, n_checks - bufs.shape[-1]))
+        last = bufs.gather(2, (used - 1).clamp_min(0).view(1, B, 1).expand(4, B, 1))
+        bufs = torch.where(pos < used[:, None], bufs, last)
+        x, y, ax = state.x, state.y, state.ax
+        if self.dense:
+            ax = self._dense_apply_a(x[0])
+        pobj = self.residuals(x, y, ax)[0]
+        if self.dense:
+            merged, parts, off = x[0], [], 0
+            for rows_i, len_i in self.split_shapes:
+                parts.append(merged[:, off:off + rows_i, :len_i])
+                off += rows_i
+            x = tuple(parts)
+        return RawSolve(
+            lam=y,
+            x_slabs=x,
+            g=pobj,
+            stats=(StageStats(g=bufs[0], grad_norm=bufs[1], max_violation=bufs[2]),),
+            sigma_sq=torch.tensor(self.sigma_sq, dtype=torch.float32),
+            etas=torch.tensor(self.taus, dtype=torch.float32).view(B, 1),
+            iters=torch.tensor([[c * self.inner] for c in chunks], dtype=torch.int32),
+            restarts=torch.tensor(state.restarts, dtype=torch.int32),
+        )
+
+
+def pdhg_raw_solve_batched(
+    stacked: BucketedInstance,
+    lam0: torch.Tensor,
+    cfg: MaximizerConfig,
+    normalize: bool,
+    fused_oracle: bool = False,
+    sigma_sq: Optional[torch.Tensor] = None,
+    pcfg: PDHGEngineConfig = PDHGEngineConfig(),
+) -> RawSolve:
+    """The PDHG solve of every lane of a stacked instance from `lam0`
+    [B, m*J] (the reference's `jax.vmap(pdhg_raw_solve)`): every `RawSolve`
+    field gains the lane dimension.  Jacobi-normalizes each lane when asked;
+    ``sigma_sq`` [B] skips the power iteration of every lane."""
+    if normalize:
+        stacked = normalize_lanes(stacked)
+    obj = BatchedObjective(stacked)
+    if sigma_sq is None:
+        sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
+    return PDHGBatchedCore(obj, lam0, cfg, pcfg, fused_oracle=fused_oracle,
+                           sigma_sq=sigma_sq).run()
 
 
 def pdhg_raw_solve(

@@ -27,6 +27,10 @@
 // block row per lane.  Each lane's x, A x, c'x and ||x||^2 are therefore
 // bitwise its solo call's at the same grid.x, and a batched call is still
 // one narrow launch (plus one per wider bucket) and one finalize, whatever B.
+// A batched call may also give each lane its own 1/gamma (`lane_ginv`, [B]
+// fp32 on the card): the batched PDHG prox step, whose gamma_b = 1/tau_b
+// comes from each lane's own sigma_max(A)^2.  A block reads its lane's entry
+// once; lane b at gamma_b is then bitwise its solo call at gamma_b.
 //
 // A x in fixed point, so its sums are exact and order-free.  Each nonzero
 // contribution coeff_k * x (fp32, rounded as the plain version rounds it)
@@ -275,14 +279,15 @@ extern "C" int dual_oracle_info(int dtype, int M, int wide, int threads, long lo
 // pairs, one per block.  With `lanes` > 1 every one of these is per lane
 // (lane b's at b times its size; the slabs are stacked), and `lane_q` holds
 // 2^shift then 2^-shift of each lane ([2, lanes] fp32 on the card) in
-// place of `shift`.  Launches on `stream` without synchronising; returns
-// the first CUDA error (0 on success).
+// place of `shift`; `lane_ginv`, when not null, holds each lane's 1/gamma
+// ([lanes] fp32 on the card) in place of `ginv`.  Launches on `stream`
+// without synchronising; returns the first CUDA error (0 on success).
 extern "C" int dual_oracle_run(const long long* slabs, int nslabs, const long long* launches,
                                int nlaunch, int dtype, int M, int m, int J, const void* lam,
                                const long long* x, void* acc, void* scal, int scal_rows,
                                void* ax, void* lin_sq, float ginv, float radius,
                                int inequality, int shift, int finalize_grid, int lanes,
-                               const void* lane_q, void* stream) {
+                               const void* lane_q, const void* lane_ginv, void* stream) {
   if (!valid_families(M, m) || J < 1 || nlaunch < 0 || scal_rows < 0 ||
       shift < -100 || shift > 100 || finalize_grid < 1 || lanes < 1 || lanes > 65535 ||
       (lanes > 1 && lane_q == nullptr)) {
@@ -301,6 +306,7 @@ extern "C" int dual_oracle_run(const long long* slabs, int nslabs, const long lo
   p.qscale = std::ldexp(1.f, shift);
   const float* lq = static_cast<const float*>(lane_q);
   p.lane_q = lq;
+  p.lane_ginv = static_cast<const float*>(lane_ginv);
   p.scal_lane_rows = scal_rows;
   p.plane = 0;
   for (int l = 0; l < nlaunch; ++l) {

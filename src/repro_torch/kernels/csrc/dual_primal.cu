@@ -149,6 +149,7 @@ void primal_launch(Launch& p, const void* lam, int m, int J, float ginv, float r
   p.scal = nullptr;
   p.qscale = 1.f;
   p.lane_q = nullptr;
+  p.lane_ginv = nullptr;
   p.scal_lane_rows = 0;
   p.plane = 0;
 }

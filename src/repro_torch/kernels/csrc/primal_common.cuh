@@ -93,8 +93,10 @@ struct Launch {
   int scal_row;             // this launch's first scal row
   float qscale;             // 2^shift of the fixed-point A x
   // the tenant axis (gridDim.y lanes): lam, acc and scal advance by one
-  // lane's size per lane; each lane has its own 2^shift (lane_q) when given
+  // lane's size per lane; each lane has its own 2^shift (lane_q) and its
+  // own 1/gamma (lane_ginv, the batched PDHG step's 1/gamma_b) when given
   const float* lane_q;      // [lanes] qscale per lane, or null (qscale)
+  const float* lane_ginv;   // [lanes] 1/gamma per lane, or null (ginv)
   int scal_lane_rows;       // scal rows of one lane
   // row-list outputs: a slot's mask (fp32) and idx (int32) are written
   // `plane` and 2 * `plane` floats past its x
@@ -190,6 +192,12 @@ __device__ __forceinline__ float primal_candidate(const Slot<M>& s, const float*
     if (k < m) atl = __fadd_rn(atl, __fmul_rn(s.coeff[k], lam[k * J + s.idx]));
   }
   return __fmul_rn(-__fadd_rn(atl, s.cost), ginv);
+}
+
+// 1/gamma of this block's lane: the lane's entry of the per-lane table
+// when the launch has one (the batched PDHG prox step), else the scalar.
+__device__ __forceinline__ float block_ginv(const Launch& p) {
+  return p.lane_ginv != nullptr ? p.lane_ginv[blockIdx.y] : p.ginv;
 }
 
 // Masked Duchi projection of a row held by a segment of 2^LOGL lanes of one
@@ -339,10 +347,11 @@ __device__ __forceinline__ void narrow_task(const Launch& p, const Slab& b, long
     if (ROWS) src = valid[u] ? (b.rows[s >> LOGL] << LOGL) + pos : 0;
     load_slot<T, TO, M>(v, p.m, scale, cost_scale, src, valid[u], slot[u]);
   }
+  const float ginv = block_ginv(p);
   float x[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const float c = primal_candidate<M>(slot[u], lam, p.m, p.J, p.ginv);
+    const float c = primal_candidate<M>(slot[u], lam, p.m, p.J, ginv);
     x[u] = simplex_segment<LOGL>(c, slot[u].mask, pos, p.radius, p.inequality != 0);
   }
 #pragma unroll
@@ -392,13 +401,14 @@ __device__ __forceinline__ void walk_wide(const Launch& p, const float* lam, flo
   const LaneSlab<T, TO> v = lane_slab<T, TO>(b, p.m);
   float scale[M], cost_scale;
   load_scales<M>(b, p.m, scale, cost_scale);
+  const float ginv = block_ginv(p);
   const long long stride = static_cast<long long>(gridDim.x) * warps;
   for (long long row = static_cast<long long>(blockIdx.x) * warps + warp; row < b.n;
        row += stride) {
     const long long base = (ROWS ? b.rows[row] : row) * L;
     auto candidate = [&](int q, Slot<M>& s) {
       load_slot<T, TO, M>(v, p.m, scale, cost_scale, base + q, true, s);
-      return primal_candidate<M>(s, lam, p.m, p.J, p.ginv);
+      return primal_candidate<M>(s, lam, p.m, p.J, ginv);
     };
     const RowCut cut = simplex_wide_cut(
         [&](int q, float& val, float& maskf) {

@@ -20,7 +20,10 @@ stacked instances of one shape ([B, ...] slabs) the plan is lane 0's plan
 with B lanes (gridDim.y = B) and a fixed-point shift per lane, since each
 lane's coefficients fix its own.  A batched call is the same launches as a
 solo one, whatever B, and each lane's x, A x, c'x and ||x||^2 are bitwise
-its solo call's.
+its solo call's.  A batched call takes one gamma for every lane or a [B]
+tensor of them (`lane_inv_gamma`: each lane's 1/gamma_b in a [B] fp32
+table on the card, read once per block), which is what the batched PDHG
+prox step needs: its gamma_b = 1/tau_b differs per lane.
 
 Capacity (replaces the TPU's one-hot VMEM gate `fits_onehot_budget`): the
 int64 [m, J] histogram lives in shared memory when it fits (with lam beside
@@ -37,6 +40,7 @@ import math
 import threading
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.objective import inv_gamma
@@ -58,6 +62,7 @@ __all__ = [
     "finalize_launches",
     "fixed_point_shift",
     "kernel_info",
+    "lane_inv_gamma",
     "launches",
     "narrow_tasks",
     "oracle_call",
@@ -267,6 +272,7 @@ def _fn(name: str):
                 ptr, ptr,  # ax, (c'x, ||x||^2)
                 f32, f32, i32, i32, i32,  # 1/gamma radius inequality shift finalize grid
                 i32, ptr,  # lanes, per-lane 2^shift and 2^-shift
+                ptr,  # per-lane 1/gamma, or null
                 ptr,  # stream
             ],
             "dual_primal_rows_run": rows_run,
@@ -511,23 +517,44 @@ def _outputs(plan: SlabPlan) -> tuple[tuple[torch.Tensor, ...], ctypes.Array]:
     return xs, ptrs
 
 
+def lane_inv_gamma(gamma: torch.Tensor, device) -> torch.Tensor:
+    """Each lane's 1/gamma_b as fp32 on `device` ([B] contiguous):
+    fp32(1) / fp32(gamma_b), correctly rounded, so lane b's value is
+    `inv_gamma(gamma_b)` bit for bit (numpy's fp32 division on the host,
+    PyTorch's IEEE fp32 reciprocal on the card)."""
+    g = gamma.detach().to(torch.float32)
+    if g.device.type == "cpu":
+        inv = torch.from_numpy(np.float32(1.0) / g.numpy())
+        return inv.to(device)
+    return torch.reciprocal(g.to(device)).contiguous()
+
+
 def oracle_call(
-    plan: SlabPlan, lam: torch.Tensor, gamma: float, *, scratch: Optional[dict] = None,
+    plan: SlabPlan, lam: torch.Tensor, gamma, *, scratch: Optional[dict] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
     """One oracle call of a "dual_oracle" plan: `(x_slabs, ax, lin, sq)`.
 
     x_slabs in the storage dtype (fp32 for int8), ax [m*J] = A x, lin =
     c'x and sq = ||x||^2, all fp32.  Over B lanes (`plan_batched`) lam is
     [B, m*J] and the outputs gain the lane dimension: x [B, n, L] per
-    bucket, ax [B, m*J], lin and sq [B].  `scratch`, when given, receives
-    the int64 row ("acc") and the per-block fp32 partials ("scal") the
-    finalize read."""
+    bucket, ax [B, m*J], lin and sq [B]; `gamma` is then a float shared by
+    the lanes or a [B] tensor, gamma_b per lane (the batched PDHG prox
+    step), with lane b bitwise its solo call at gamma_b.  `scratch`, when
+    given, receives the int64 row ("acc") and the per-block fp32 partials
+    ("scal") the finalize read."""
     global launches, finalize_launches
     _require(plan.kernel == "dual_oracle", f"a {plan.kernel} plan")
     mJ, dev, batched = plan.m * plan.J, plan.device, plan.lanes > 0
     B = max(plan.lanes, 1)
     _check_lam("dual_oracle", lam, B * mJ, dev)
     _require(not batched or tuple(lam.shape) == (B, mJ), f"lam must be [{B}, {mJ}] over {B} lanes")
+    ginv, ginv_lanes = 1.0, None
+    if isinstance(gamma, torch.Tensor):
+        _require(batched and tuple(gamma.shape) == (B,),
+                 f"a per-lane gamma must be [{B}] on a plan of {B} lanes")
+        ginv_lanes = lane_inv_gamma(gamma, dev)
+    else:
+        ginv = inv_gamma(gamma)
     xs, ptrs = _outputs(plan)
     work = torch.zeros(B * (mJ + plan.scal_rows), dtype=torch.int64, device=dev)
     res = torch.empty(B * (mJ + 2), dtype=torch.float32, device=dev)
@@ -537,8 +564,9 @@ def oracle_call(
             plan.slab_words, len(plan.shapes), plan.launch_words, len(plan.launches),
             _DTYPE_CODES[plan.dtype], plan.M, plan.m, plan.J, lam.data_ptr(), ptrs,
             acc_ptr, acc_ptr + 8 * B * mJ, plan.scal_rows, res_ptr, res_ptr + 4 * B * mJ,
-            inv_gamma(gamma), plan.radius, int(plan.inequality), plan.shift,
+            ginv, plan.radius, int(plan.inequality), plan.shift,
             plan.finalize_grid, B, 0 if plan.lane_q is None else plan.lane_q.data_ptr(),
+            0 if ginv_lanes is None else ginv_lanes.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -8,6 +8,8 @@
                               rows (the serving query)
   fused_project_simplex_call  projection, every bucket        simplex_proj.simplex_call
   fused_pdhg_step_call        PDHG prox step, every bucket    dual_oracle.oracle_call
+  fused_pdhg_step_batched_call  the same over B stacked       dual_oracle.oracle_call
+                              instances, tau per lane         (a plan_batched plan)
   fused_dual_oracle           one-pass oracle, one bucket     dual_oracle.dual_oracle
   fused_dual_primal           the primal step, one bucket     dual_primal.dual_primal
   fused_project_simplex       projection, one slab            simplex_proj.simplex_proj
@@ -21,7 +23,10 @@ primal step or of the projection per call on the other paths (one more per
 bucket wider than 32).  The PDHG engine's fused prox step is the oracle
 with an iterate-dependent cost (`fused_pdhg_step`): its whole-call form
 writes persistent `cost_eff` buffers in place and makes one oracle call
-through a plan built once per solve over them (`plan_pdhg_step`).
+through a plan built once per solve over them (`plan_pdhg_step`); over a
+stack of instances (the batched PDHG solve) the buffers are [B, n, L], each
+lane has its own tau, and one batched oracle call with a 1/gamma per lane
+takes the step of every lane (`plan_pdhg_step_batched`).
 
 Each routes by where the tensors live:
   * CPU tensors take the plain version (`ref.dual_oracle_ref`,
@@ -63,12 +68,15 @@ __all__ = [
     "fused_project_simplex",
     "fused_project_simplex_call",
     "fused_pdhg_step",
+    "fused_pdhg_step_batched_call",
     "fused_pdhg_step_call",
     "PDHGStep",
+    "PDHGStepBatched",
     "oracle_hist_partial_bytes",
     "oracle_slab_slot_bytes",
     "plan_batched_oracle",
     "plan_pdhg_step",
+    "plan_pdhg_step_batched",
     "plan_rows",
     "plan_slab_kernel",
     "width_routed",
@@ -206,7 +214,7 @@ def plan_batched_oracle(buckets, num_destinations: int, *, radius: float = 1.0,
 def fused_dual_oracle_batched_call(
     buckets,  # stacked `Bucket`s: [B, ...] tensors of one shape
     lam: torch.Tensor,  # [B, m * J] fp32
-    gamma: float,  # shared by every lane
+    gamma,  # a float shared by every lane, or a [B] tensor: gamma_b per lane
     *,
     num_destinations: int,
     radius: float = 1.0,
@@ -215,9 +223,9 @@ def fused_dual_oracle_batched_call(
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole one-pass oracle of every lane of a stack of instances:
     `(x_slabs [B, n, L] each, ax [B, m*J], lin [B], sq [B])`, lane b's
-    bitwise its own solo call's.  On the card one oracle launch for every
-    lane and bucket of width <= 32 (one more per wider bucket) and one
-    finalize over [B, m*J]; on the CPU the plain call, lane by lane."""
+    bitwise its own solo call's at its gamma.  On the card one oracle launch
+    for every lane and bucket of width <= 32 (one more per wider bucket) and
+    one finalize over [B, m*J]; on the CPU the plain call, lane by lane."""
     J = num_destinations
     routed = _routed([b.cost.shape[-1] for b in buckets])
     if not _on_card(buckets[0].cost) or len(routed) == len(buckets):
@@ -405,10 +413,12 @@ def _inv_tau(tau) -> float:
     return float(np.float32(1.0) / np.float32(float(tau)))
 
 
-def _write_cost_eff(cost: torch.Tensor, x: torch.Tensor, inv_tau: float,
+def _write_cost_eff(cost: torch.Tensor, x: torch.Tensor, inv_tau,
                     tmp: torch.Tensor, out: torch.Tensor) -> None:
     """out = cost - x * inv_tau, rounded twice as the reference computes it
-    (a product, then a difference: two launches on the card, never an FMA)."""
+    (a product, then a difference: two launches on the card, never an FMA).
+    `inv_tau` is a Python float, or a [B, 1, 1] fp32 tensor of per-lane
+    values for stacked slabs (the same fp32 product per element)."""
     torch.mul(x, inv_tau, out=tmp)
     torch.sub(cost, tmp, out=out)
 
@@ -513,5 +523,83 @@ def fused_pdhg_step_call(
     step.write_cost_eff(x_slabs, inv_tau)
     xs, ax, _, _ = fused_dual_oracle_call(
         step.slabs, y, inv_tau, num_destinations=step.num_destinations,
+        radius=step.radius, inequality=step.inequality, plan=step.plan)
+    return xs, ax
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PDHGStepBatched:
+    """The fused PDHG prox step over every bucket of B stacked instances of
+    one shape, each lane with its own tau (fixed per solve).
+
+    `slabs` are the stacked buckets with their cost replaced by one
+    persistent [B, n, L] fp32 `cost_eff` buffer each; `plan` is the batched
+    oracle's plan over them (`plan_batched`: the solo grid with B lanes and a
+    fixed-point shift per lane; None on the CPU).  `inv_tau` [B, 1, 1] holds
+    each lane's fp32(1/tau_b), the value the solo step reads into a Python
+    float (`_inv_tau`) and the oracle's gamma_b."""
+
+    costs: tuple[torch.Tensor, ...]  # c per bucket, [B, n, L] fp32
+    slabs: tuple[kdo.Slab, ...]  # stacked idx, coeff and mask, cost = the cost_eff buffer
+    scratch: torch.Tensor  # flat fp32: x * inv_tau of one bucket (all lanes) at a time
+    inv_tau: torch.Tensor  # [B, 1, 1] fp32
+    num_destinations: int
+    radius: float
+    inequality: bool
+    plan: Optional[kdo.SlabPlan]
+
+    @property
+    def launches_per_call(self) -> int:
+        """Oracle launches of one call on the card (0 on the CPU), whatever B."""
+        return 0 if self.plan is None else len(self.plan.launches)
+
+    def write_cost_eff(self, x_slabs) -> None:
+        """Each bucket's buffer = c - x * inv_tau_b, in place: one product and
+        one difference per bucket over all lanes, each rounded (a [B, 1, 1]
+        factor multiplies as the solo step's Python float does)."""
+        for c, x, s in zip(self.costs, x_slabs, self.slabs):
+            _write_cost_eff(c, x, self.inv_tau, self.scratch[:x.numel()].view(x.shape), s.cost)
+
+
+def plan_pdhg_step_batched(
+    buckets,  # stacked fp32 compute views: [B, ...] tensors of one shape
+    costs,  # the cost of each bucket, [B, n, L] fp32
+    tau,  # each lane's primal step: B floats (or a [B] tensor, read once)
+    *,
+    num_destinations: int,
+    radius: float = 1.0,
+    inequality: bool = True,
+) -> PDHGStepBatched:
+    """Allocate the stacked `cost_eff` buffers of a batched solve, fix each
+    lane's fp32(1/tau_b) and plan the batched oracle over the buffers (on the
+    card; on the CPU there is no plan)."""
+    taus = tau.tolist() if isinstance(tau, torch.Tensor) else list(tau)
+    dev = costs[0].device
+    inv = torch.tensor([_inv_tau(t) for t in taus], dtype=torch.float32)
+    slabs = tuple(kdo.Slab(b.idx, b.coeff, torch.empty_like(c), b.mask)
+                  for b, c in zip(buckets, costs))
+    scratch = torch.empty(max(c.numel() for c in costs), dtype=torch.float32, device=dev)
+    plan = plan_batched_oracle(slabs, num_destinations, radius=radius, inequality=inequality)
+    return PDHGStepBatched(tuple(costs), slabs, scratch, inv.view(-1, 1, 1).to(dev),
+                           num_destinations, float(radius), bool(inequality), plan)
+
+
+def fused_pdhg_step_batched_call(
+    step: PDHGStepBatched,
+    x_slabs,  # [B, n, L] fp32 per bucket: the current primal of every lane
+    y: torch.Tensor,  # [B, m * J] fp32 current duals
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """The PDHG prox step of every bucket of every lane: `(x_new slabs
+    [B, n, L], A x_new [B, m*J])`, lane b bitwise its solo
+    `fused_pdhg_step_call` at tau_b.
+
+    Writes each bucket's `cost_eff = c - x * fp32(1/tau_b)` into the step's
+    buffers, then makes ONE batched oracle call with gamma_b = fp32(1/tau_b)
+    per lane: on the card one oracle launch for every lane and bucket of
+    width <= 32 and one finalize, whatever B; on the CPU the plain call,
+    lane by lane."""
+    step.write_cost_eff(x_slabs)
+    xs, ax, _, _ = fused_dual_oracle_batched_call(
+        step.slabs, y, step.inv_tau.view(-1), num_destinations=step.num_destinations,
         radius=step.radius, inequality=step.inequality, plan=step.plan)
     return xs, ax

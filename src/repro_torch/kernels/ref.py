@@ -170,7 +170,7 @@ def lane_slab(s, b: int) -> LaneSlab:
 def dual_oracle_batched_ref(
     buckets,  # stacked buckets: [B, ...] tensors of one shape
     lam: torch.Tensor,  # [B, m * J]
-    gamma,
+    gamma,  # a float shared by the lanes, or a [B] tensor: gamma_b per lane
     J: int,
     radius: float = 1.0,
     *,
@@ -178,9 +178,12 @@ def dual_oracle_batched_ref(
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole oracle call of every lane: `(x_slabs [B, n, L] each, ax
     [B, m*J], lin [B], sq [B])`, lane b being `dual_oracle_call_ref` of
-    lane b's slabs and duals."""
-    per = [dual_oracle_call_ref([lane_slab(b, i) for b in buckets], lam[i], gamma, J, radius,
-                                inequality=inequality)
+    lane b's slabs and duals at its gamma (`gamma[b]` for a tensor, whose
+    1/gamma_b rounds as `inv_gamma(gamma_b)`)."""
+    gammas = (gamma.detach().cpu().tolist() if isinstance(gamma, torch.Tensor)
+              else [gamma] * lam.shape[0])
+    per = [dual_oracle_call_ref([lane_slab(b, i) for b in buckets], lam[i], gammas[i], J,
+                                radius, inequality=inequality)
            for i in range(lam.shape[0])]
     xs = tuple(torch.stack([p[0][k] for p in per]) for k in range(len(buckets)))
     return (xs, torch.stack([p[1] for p in per]), torch.stack([p[2] for p in per]),

@@ -32,11 +32,11 @@ Invariants:
     (a leading tenant dimension B on every slab and on the rhs,
     `core.batched.stack_lanes`) and `[B, m*J]` start duals, and return a
     `RawSolve` whose every field has the lane dimension; `to_solve_results`
-    splits it.  The AGD engine runs one loop over the lanes
-    (`engines.agd.agd_raw_solve_batched`: with the fused oracle one kernel
-    call per iteration for the whole batch); the PDHG engine runs its lanes
-    one after another through the solo solve, which gives what a vmapped
-    PDHG solve gives, lane for lane.
+    splits it.  Each engine runs one loop over the lanes
+    (`engines.agd.agd_raw_solve_batched`, `engines.pdhg.pdhg_raw_solve_batched`):
+    with the fused oracle one kernel call per iteration for the whole batch
+    (the PDHG prox step with a 1/gamma per lane), each lane what a vmapped
+    solve gives it.
   * **Asynchrony** — the entry points enqueue device work and wait for the
     device only where a solve decides on the host (once per early-stopping
     chunk); `RawSolve` holds device tensors.  Callers that time a solve end
@@ -52,11 +52,11 @@ from typing import Optional
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core.batched import lane_instance
 from repro_torch.core.maximizer import MaximizerConfig, SolveResult, StageStats
 from repro_torch.device import resolve_device
 from repro_torch.engines.agd import agd_raw_solve_batched
 from repro_torch.engines.base import RawSolve, resolve_engine
+from repro_torch.engines.pdhg import pdhg_raw_solve_batched
 from repro_torch.instances.buckets import Bucket, BucketedInstance
 from repro_torch.instances.deltas import BucketScatter, ScatterPlan
 
@@ -102,20 +102,7 @@ def _raw_solve(
     )
 
 
-def _stack_raws(raws: list[RawSolve]) -> RawSolve:
-    """Solo solves of the lanes stacked field by field into a batched one."""
-    st = lambda ts: torch.stack([torch.as_tensor(t) for t in ts])
-    return RawSolve(
-        lam=st([r.lam for r in raws]),
-        x_slabs=tuple(st(xs) for xs in zip(*(r.x_slabs for r in raws))),
-        g=st([r.g for r in raws]),
-        stats=tuple(StageStats(*(st(f) for f in zip(*stages)))
-                    for stages in zip(*(r.stats for r in raws))),
-        sigma_sq=st([r.sigma_sq for r in raws]),
-        etas=st([r.etas for r in raws]),
-        iters=st([r.iters for r in raws]),
-        restarts=st([r.restarts for r in raws]),
-    )
+_BATCHED = {"agd": agd_raw_solve_batched, "pdhg": pdhg_raw_solve_batched}
 
 
 def _raw_solve_batched(
@@ -127,15 +114,12 @@ def _raw_solve_batched(
     sigma_sq: Optional[torch.Tensor] = None,
     engine: str = "agd",
 ) -> RawSolve:
-    """The solve of every lane of a stacked instance on the named engine."""
-    if engine == "agd":
-        return agd_raw_solve_batched(stacked, lam0, cfg, normalize, fused_oracle, sigma_sq)
-    eng = resolve_engine(engine)
-    return _stack_raws([
-        eng.raw_solve(lane_instance(stacked, b), lam0[b], cfg, normalize=normalize,
-                      fused_oracle=fused_oracle,
-                      sigma_sq=None if sigma_sq is None else sigma_sq[b])
-        for b in range(lam0.shape[0])])
+    """The solve of every lane of a stacked instance on the named engine:
+    one loop over the lanes (`agd_raw_solve_batched`,
+    `pdhg_raw_solve_batched`), each lane with its own `sigma_sq` when
+    given."""
+    return _BATCHED[resolve_engine(engine).name](stacked, lam0, cfg, normalize,
+                                                 fused_oracle, sigma_sq)
 
 
 # One entry point per (MaximizerConfig, normalize, fused_oracle, engine)

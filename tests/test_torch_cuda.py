@@ -696,3 +696,109 @@ def test_served_batch_is_bitwise_direct_on_card(cuda):
     xs = [x.cpu().numpy() for x in direct_allocations(snap)]
     for ba in result.slabs:
         assert np.array_equal(ba.x, xs[ba.bucket][ba.rows])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 2, 4, 7])
+def test_batched_oracle_gamma_per_lane_is_bitwise_solo(cuda, dtype, B):
+    """Kernel 1 with a 1/gamma per lane: lane b bitwise its solo call at
+    gamma_b, still one narrow launch (one wide) and one finalize."""
+    J = 64
+    shapes = [(300 + 17 * L, L) for L in (1, 4, 8, 32)] + [(40, 64)]
+    lanes, st = _stacked(B, shapes, 2, J, dtype, cuda, seed=10 + B)
+    lam = torch.from_numpy(np.random.default_rng(B).random((B, 2 * J)).astype(np.float32)).to(cuda)
+    gammas = torch.tensor([0.013 * 3.7 ** b for b in range(B)], dtype=torch.float32)
+    plan = kops.plan_batched_oracle(st, J)
+    for g in (gammas, gammas.to(cuda)):  # the table from the host or the card
+        kdo.launches = kdo.finalize_launches = 0
+        xs, ax, lin, sq = kops.fused_dual_oracle_batched_call(st, lam, g, num_destinations=J,
+                                                              plan=plan)
+        assert (kdo.launches, kdo.finalize_launches) == (2, 1)
+        for b in range(B):
+            solo = kops.plan_slab_kernel("dual_oracle", lanes[b], J)
+            sx, sax, slin, ssq = kdo.oracle_call(solo, lam[b].contiguous(), float(gammas[b]))
+            assert all(torch.equal(x[b], y) for x, y in zip(xs, sx)), b
+            assert torch.equal(ax[b], sax) and torch.equal(lin[b], slin)
+            assert torch.equal(sq[b], ssq)
+    want = kref.dual_oracle_batched_ref(st, lam, gammas, J)
+    for x, w in zip(xs, want[0]):
+        np.testing.assert_allclose(x.float().cpu(), w.float().cpu(), atol=X_ATOL[dtype])
+
+
+def test_batched_pdhg_step_is_b_solo_steps(cuda):
+    """One batched prox step (tau per lane) equal to B solo steps: x+ and
+    A x+ bitwise, one oracle launch and one finalize for all lanes."""
+    J, B = 64, 4
+    shapes = [(300 + 17 * L, L) for L in (1, 4, 8, 16, 32)]
+    lanes, st = _stacked(B, shapes, 1, J, "float32", cuda, seed=5)
+    rng = np.random.default_rng(2)
+    taus = [0.37, 0.05, 1.3, 0.9]
+    xs = [(torch.from_numpy(rng.random(b.cost.shape).astype(np.float32)).to(cuda) * b.mask)
+          for b in st]
+    y = torch.from_numpy(rng.random((B, J)).astype(np.float32)).to(cuda)
+    step = kops.plan_pdhg_step_batched(st, [b.cost for b in st], taus, num_destinations=J)
+    kdo.launches = kdo.finalize_launches = 0
+    got_x, got_ax = kops.fused_pdhg_step_batched_call(step, xs, y)
+    assert (kdo.launches, kdo.finalize_launches) == (1, 1)
+    for b, tau in enumerate(taus):
+        solo = kops.plan_pdhg_step(lanes[b], [bk.cost for bk in lanes[b]], num_destinations=J)
+        sx, sax = kops.fused_pdhg_step_call(solo, [x[b].contiguous() for x in xs],
+                                            y[b].contiguous(), tau)
+        assert all(torch.equal(x[b], s) for x, s in zip(got_x, sx)), b
+        assert torch.equal(got_ax[b], sax), b
+
+
+def test_vectorised_unfused_oracle_lanes_are_solo_on_card(cuda):
+    """The unfused batched oracle (one pass over the [B, ...] slabs) and its
+    power iteration: every lane bitwise its solo call on the card, rows
+    wider than 32 included."""
+    from repro_torch.core.batched import BatchedObjective, lane_instance, stack_lanes
+    from repro_torch.instances import BucketedInstance
+
+    J, B, m = 64, 3, 2
+    shapes = [(300 + 17 * L, L) for L in (1, 8, 32)] + [(40, 64), (12, 512)]
+    lanes, st = _stacked(B, shapes, m, J, "float32", cuda, seed=7)
+    rhs = torch.rand(B, m * J, generator=torch.Generator().manual_seed(0)).to(cuda) + 1.0
+    stacked = BucketedInstance(buckets=tuple(st), rhs=rhs,
+                               num_sources=sum(n for n, _ in shapes), num_destinations=J,
+                               num_families=m)
+    obj = BatchedObjective(stacked)
+    lam = torch.from_numpy(np.random.default_rng(3).random((B, m * J)).astype(np.float32)).to(cuda)
+    ev = obj.calculate(lam, 0.05)
+    sig = obj.power_iteration(0, iters=10)
+    for b in range(B):
+        solo = MatchingObjective(lane_instance(stacked, b))
+        e = solo.calculate(lam[b].contiguous(), 0.05)
+        for field in ("g", "grad", "ax", "primal_linear", "primal_ridge"):
+            assert torch.equal(getattr(ev, field)[b], torch.as_tensor(getattr(e, field))), field
+        assert all(torch.equal(x[b], s) for x, s in zip(ev.x_slabs, e.x_slabs))
+        assert torch.equal(sig[b], solo.power_iteration(0, iters=10))
+    assert stack_lanes([lane_instance(stacked, b) for b in range(B)]).rhs.shape == rhs.shape
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_batched_pdhg_solve_lanes_are_solo_on_card(cuda, fused):
+    """The batched PDHG solve on the card: one oracle launch and finalize
+    per batched iteration (fused), and every lane its solo solve."""
+    from repro_torch.core.batched import lane_instance, stack_lanes
+    from repro_torch.engines.pdhg import pdhg_raw_solve_batched
+
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=50, avg_degree=6.0, seed=3)
+    base = bucketize(generate_matching_instance(spec), device=cuda)
+    import dataclasses
+
+    insts = [dataclasses.replace(base, buckets=tuple(
+        dataclasses.replace(bk, coeff=bk.coeff * (1.0 + 0.3 * t)) for bk in base.buckets))
+        for t in range(3)]
+    stacked = stack_lanes(insts)
+    cfg = MaximizerConfig(gammas=(0.01,), iters_per_stage=200, tol_grad=1e-3, check_every=25)
+    pcfg = PDHGEngineConfig(dense="off")
+    lam0 = torch.zeros(3, stacked.dual_dim, device=cuda)
+    kdo.launches = kdo.finalize_launches = 0
+    raw = pdhg_raw_solve_batched(stacked, lam0, cfg, True, fused, pcfg=pcfg)
+    if fused:
+        assert kdo.launches == kdo.finalize_launches == int(raw.iters.max())
+    for b in range(3):
+        s = pdhg_raw_solve(lane_instance(stacked, b), lam0[b], cfg, True, fused, pcfg=pcfg)
+        assert int(raw.iters[b, 0]) == int(s.iters[0]) and int(raw.restarts[b]) == int(s.restarts)
+        assert torch.equal(raw.lam[b], s.lam), b
