@@ -84,6 +84,29 @@ Phases, each printing one line before the last:
      oracle call equal to the kernel table's bound bytes, the memory
      estimate against the main path's measured peak) and the s100M-d10K
      cells at 1 and 4 shards.
+  9. the LM substrate's serving path (no kernel of the port: each phase
+     holds that none of the three launched), with the solver's tensors
+     released first and the peak-memory statistics reset per model:
+     lm_serve_cli: `python -m repro_torch.launch.serve_lm` in process at its
+     defaults (reduced qwen3-8b, 8 requests, prompt 16, 24 new tokens, 4
+     slots), then with `--arch X` for each of the ten architectures, every
+     request done with 24 tokens in the vocabulary; lm_qwen3_8b: qwen3-8b at
+     full width and depth (36 layers) through `ServeEngine` in bf16, params
+     cast once: prefill against teacher-forced decode at the reference's
+     atol/rtol 0.05 in fp32 compute at full depth and in bf16 on the params
+     cut to 2 layers (bf16 at full depth measured, with both bf16 paths
+     against the fp32 logits), two engine runs of 8 requests (64-token
+     prompts, 32 new tokens, 4 slots) with identical tokens, the 2-layer cut
+     in fp32 on the card against the CPU (rtol 1e-3), and the times: ms per
+     batched decode step against its bound from the weights' bytes, ms per
+     prefill token, tokens per second, peak memory and the device's idle
+     share over a profiled window of decode steps; lm_deepseek_v2_2l:
+     deepseek-v2-236b at full width cut to 2 layers (an MLA dense prefix and
+     one MoE layer of 160 experts), `router="topk"` and `"lp"`: prefill
+     against decode at 0.05 with a capacity that never binds, two runs
+     bit-equal at the config's capacity, `lp_route` at its properties;
+     lm_mamba2: mamba2-1.3b whole, the 512-token SSD prefill against decode
+     at 0.05 in fp32 at full depth and in bf16 cut to 2 layers, the engine.
 The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
 lanes, each lane bitwise its solo call, with one gamma and with a gamma per
 lane) and sweep_rows (kernel 2 over row
@@ -2663,6 +2686,435 @@ def profile_window(step, tag: str, iters: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The LM substrate's serving path: no kernel of the port (its products are
+# torch.matmul / torch.einsum), so each phase also holds that none of the
+# three kernels launched.
+# ---------------------------------------------------------------------------
+
+LM_TOL = dict(atol=0.05, rtol=0.05)  # the reference's, tests/test_lm_demo.py:66-76
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+LM_DEVICE = "cuda"  # the LM phases' device
+
+
+def lm_release() -> dict:
+    """Drop what earlier phases left cached on the card and reset the peak
+    statistics; what is still allocated afterwards."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def lm_close(got, want, what: str) -> float:
+    """Max |got - want|; fails beyond the reference's atol/rtol 0.05."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not (torch.isfinite(g).all() and torch.allclose(g, w, **LM_TOL)):
+        fail(f"{what}: max |diff| {err} beyond atol/rtol 0.05 (or not finite)")
+    return err
+
+
+def lm_no_kernel(what: str) -> None:
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"{what}: the LM path launched a kernel of the port: {counts}")
+
+
+def lm_prefill_vs_decode(model, params, toks, what: str, *, hold: bool = True,
+                         cache_dtype=None) -> dict:
+    """`Model.prefill`'s last logits and one decode step after it against
+    teacher-forced `decode_step` from an empty cache (the reference's
+    tests/test_lm_demo.py:52-77), held at its atol/rtol 0.05 when `hold`;
+    the logits ride along under "_logits" for comparisons across dtypes."""
+    import torch
+
+    B, S = toks.shape
+    logits_pf, cache_pf = model.prefill(params, {"tokens": toks}, max_seq=S + 4)
+    cache = model.init_cache(B, S + 4, cache_dtype, device=toks.device)
+    for t in range(S):
+        lg, cache = model.decode_step(params, toks[:, t:t + 1], t, cache)
+    nxt = torch.argmax(lg[:, -1], -1)[:, None]
+    lg_a, _ = model.decode_step(params, nxt, S, cache_pf)
+    lg_b, _ = model.decode_step(params, nxt, S, cache)
+    pairs = {"prefill": (logits_pf[:, -1], lg[:, -1]), "next_step": (lg_a[:, -1], lg_b[:, -1])}
+    out = {"batch": B, "prompt": S, "held_at_atol_rtol_0.05": hold}
+    for name, (a, b) in pairs.items():
+        out[f"{name}_max_abs_err"] = (lm_close(a, b, f"{what}: {name} against decode") if hold
+                                      else float((a.float() - b.float()).abs().max()))
+    out["logit_scale"] = float(lg[:, -1].float().abs().max())
+    out["_logits"] = {"prefill": logits_pf[:, -1].float(), "decode": lg[:, -1].float()}
+    return out
+
+
+def lm_against(pvd: dict, ref: dict) -> dict:
+    """Max |diff| of a run's prefill and decode logits against another
+    run's of the same params (bf16 against fp32 compute)."""
+    return {k: float((pvd["_logits"][k] - ref["_logits"][k]).abs().max())
+            for k in ("prefill", "decode")}
+
+
+def lm_public(d: dict) -> dict:
+    return {k: v for k, v in d.items() if not k.startswith("_")}
+
+
+def lm_engine_run(model, params, prompts, max_new: int, slots: int) -> dict:
+    """`ServeEngine` over `prompts`: every request done with `max_new`
+    tokens in the vocabulary; the run's wall time and tokens per second."""
+    import torch
+
+    from repro_torch.serving.lm_demo import Request, ServeEngine
+
+    eng = ServeEngine(model, params, slots=slots, max_seq=len(prompts[0]) + max_new + 8)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    V = model.cfg.vocab_size
+    if not all(r.done and len(r.out_tokens) == max_new and all(0 <= t < V for t in r.out_tokens)
+               for r in reqs):
+        fail(f"{model.cfg.name}: the engine left a request short or out of the vocabulary")
+    return {"tokens": [list(r.out_tokens) for r in reqs], "seconds": secs,
+            "tok_per_s": len(reqs) * max_new / secs, "engine": eng}
+
+
+def lm_decode_bound(cfg, params, cache, B: int, pos: int) -> dict:
+    """The least time of one batched decode step: every weight read once
+    (the embedding's B gathered rows only, unless tied to the head), the
+    cache's valid entries read (attention: positions 0..pos; SSM state and
+    conv window read and written), against the H100's HBM rate and its bf16
+    peak for 2 operations per weight per token."""
+    rest = tree_leaves({k: v for k, v in params.items() if k != "embed"})
+    w = sum(x.numel() * x.element_size() for x in rest)
+    n = sum(x.numel() for x in rest)
+    emb = params["embed"]
+    if cfg.tie_embeddings:
+        w += emb.numel() * emb.element_size()
+        n += emb.numel()
+    else:
+        w += B * emb.shape[1] * emb.element_size()
+    kv = 0
+    for name, leaf in cache.items():
+        if name in ("h", "conv"):
+            kv += 2 * leaf.numel() * leaf.element_size()
+        else:
+            kv += leaf[:, :, : pos + 1].numel() * leaf.element_size()
+    byts, ops = w + kv, 2 * n * B
+    b_ms, o_ms = byts / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return {"bytes": byts, "weight_bytes": w, "cache_bytes": kv, "ops": ops,
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def lm_decode_times(model, params, B: int, max_seq: int, pos: int, tag: str) -> dict:
+    """One batched decode step at position `pos` of a `max_seq` cache: its
+    time by CUDA events, the host's enqueue time, its bound, and the
+    device's busy time per step over a profiled window of steps, with the
+    idle share against the profiled window (the profiler's own host cost
+    included) and against the unprofiled step time."""
+    import torch
+
+    cache = model.init_cache(B, max_seq, device=LM_DEVICE)
+    tok = (torch.arange(B, device=LM_DEVICE, dtype=torch.int32) * 11)[:, None]
+    step = lambda: model.decode_step(params, tok, pos, cache)
+    reps = 10
+    out = {"batch": B, "pos": pos, "ms": event_ms(step, reps, warmup=2),
+           "host_enqueue_ms": host_ms(step, reps)}
+    out.update(lm_decode_bound(model.cfg, params, cache, B, pos))
+    prof = profile_window(lambda: [step() for _ in range(reps)], tag, reps)
+    out["profile"] = {k: prof[k] for k in ("wall_ms_per_iter", "device_busy_ms_per_iter",
+                                           "device_idle_share", "top_device_ms_per_iter")}
+    # the profiler slows a host-bound loop; against the unprofiled step time
+    busy = prof["device_busy_ms_per_iter"]
+    out["device_idle_share"] = 1.0 - busy / out["ms"] if isinstance(busy, float) else busy
+    return out
+
+
+def phase_lm_serve_cli() -> dict:
+    """`python -m repro_torch.launch.serve_lm` in process at its defaults
+    (reduced qwen3-8b, 8 requests, prompt 16, 24 new tokens, 4 slots), then
+    once more with `--arch X` for each of the ten architectures: every
+    request done with 24 tokens, all in the vocabulary."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import serve_lm
+
+    lm_release()
+    reset_counts()
+    runs = {}
+    for argv in [[]] + [["--arch", a] for a in ARCH_IDS]:
+        run = serve_lm.run(serve_lm.build_parser().parse_args(argv))
+        V = run.cfg.vocab_size
+        if len(run.requests) != 8 or not all(
+                r.done and len(r.out_tokens) == 24 and all(0 <= t < V for t in r.out_tokens)
+                for r in run.requests):
+            fail(f"serve_lm {argv}: a request short of 24 tokens or out of the vocabulary")
+        runs[" ".join(argv) or "defaults"] = {"seconds": run.seconds,
+                                              "tok_per_s": run.tokens / run.seconds}
+    lm_no_kernel("lm_serve_cli")
+    out = {"phase": "lm_serve_cli", "runs": runs}
+    emit(out)
+    return out
+
+
+def phase_lm_qwen3_8b() -> dict:
+    """qwen3-8b at its published full width and depth (36 layers), random
+    fp32 masters from a seeded generator on the card, served in bf16 (cast
+    once).  Prefill against teacher-forced decode: at full depth in fp32
+    compute, held at the reference's atol/rtol 0.05; in bf16 held on the
+    same params cut to 2 layers (the reference test's depth), and measured
+    at full depth with both bf16 paths against the fp32 logits.  8 requests
+    of 64-token prompts, 32 new tokens each, on 4 slots through
+    `ServeEngine`, twice, with identical tokens; the 2-layer cut in fp32
+    compute on the card against the CPU; then the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    start = lm_release()
+    reset_counts()
+    cfg = get_config("qwen3-8b")
+    model = Model(cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(LM_DEVICE)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        master = model.init(torch.Generator(device=LM_DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pvd32 = lm_prefill_vs_decode(Model(dataclasses.replace(cfg, dtype="float32")), master,
+                                     toks, "qwen3-8b fp32", cache_dtype=torch.float32)
+        cut = {k: master[k] for k in ("embed", "final_norm", "lm_head")}
+        cut["blocks"] = tree_map(lambda x: x[:2].clone(), master["blocks"])
+        params = model._lowp(master)
+        del master
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+
+        # the same params cut to 2 layers: fp32 compute on the card against
+        # the CPU, and bf16 prefill against decode at the reference's depth
+        cut32 = Model(dataclasses.replace(cfg, num_layers=2, dtype="float32"))
+        small = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
+                                 .astype(np.int32))
+        logits = {}
+        for dev in (LM_DEVICE, "cpu"):
+            p = cut if dev == LM_DEVICE else tree_map(lambda x: x.cpu(), cut)
+            lg, c = cut32.prefill(p, {"tokens": small.to(dev)}, max_seq=20)
+            lg2, _ = cut32.decode_step(p, small[:, :1].to(dev), 16, c)
+            logits[dev] = torch.cat([lg[:, -1], lg2[:, -1]]).cpu()
+            del p
+        a, b = logits[LM_DEVICE], logits["cpu"]
+        cut_err = float((a - b).abs().max())
+        cut_rel = float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-5):
+            fail(f"qwen3-8b cut to 2 layers, fp32: card against CPU max |diff| {cut_err}")
+        cut16 = Model(dataclasses.replace(cfg, num_layers=2))
+        pvd_cut = lm_prefill_vs_decode(cut16, cut16._lowp(cut), toks, "qwen3-8b 2 layers bf16")
+        del cut
+        lm_release()
+
+        pvd16 = lm_prefill_vs_decode(model, params, toks, "qwen3-8b bf16", hold=False)
+        prompts = [rng.integers(0, cfg.vocab_size, 64).astype(np.int32) for _ in range(8)]
+        runs = [lm_engine_run(model, params, prompts, 32, 4) for _ in range(2)]
+        if runs[0]["tokens"] != runs[1]["tokens"]:
+            fail("qwen3-8b: two engine runs gave different tokens")
+        eng = runs[1].pop("engine")
+        runs[0].pop("engine")
+        prompt_t = torch.from_numpy(prompts[0]).to(LM_DEVICE)
+        engine_prefill_ms = event_ms(lambda: eng._prefill_one(params, prompt_t), 1, warmup=1)
+        del eng
+        decode = lm_decode_times(model, params, 4, 104, 95, "lm_qwen3_8b_decode")
+        toks4 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+                                 ).to(LM_DEVICE)
+        prefill_ms = event_ms(lambda: model.prefill(params, {"tokens": toks4}, max_seq=104), 3,
+                              warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    lm_no_kernel("lm_qwen3_8b")
+    out = {
+        "phase": "lm_qwen3_8b", "layers": cfg.num_layers, "params": model.param_count(),
+        "bf16_param_bytes": tree_nbytes(params), "allocated_before_gb": start["allocated_gb"],
+        "init_s": init_s, "init_peak_bytes": init_peak,
+        "cut_2_layers_fp32_card_vs_cpu": {"max_abs_err": cut_err, "max_rel_err": cut_rel,
+                                          "rtol": 1e-3, "atol": 1e-5},
+        "prefill_vs_decode": {"fp32_36_layers": lm_public(pvd32),
+                              "bf16_2_layers": lm_public(pvd_cut),
+                              "bf16_36_layers": lm_public(pvd16),
+                              "bf16_36_layers_against_fp32": lm_against(pvd16, pvd32)},
+        "engine": {"requests": 8, "prompt": 64, "max_new": 32, "slots": 4,
+                   "runs_s": [r["seconds"] for r in runs],
+                   "tok_per_s": [r["tok_per_s"] for r in runs], "tokens_identical": True},
+        "decode_step": decode,
+        "prefill": {"batch": 4, "prompt": 64, "ms": prefill_ms, "ms_per_token": prefill_ms / 256},
+        "engine_prefill_ms_per_token": engine_prefill_ms / 64,
+        "serve_peak_bytes": peak,
+    }
+    emit(out)
+    del params
+    return out
+
+
+def phase_lm_deepseek_v2_2l() -> dict:
+    """deepseek-v2-236b at its published width cut to 2 layers (one dense MLA
+    prefix layer, one MoE layer of 160 experts, top 6, 2 shared), bf16, with
+    `router="topk"` and `router="lp"`: prefill against teacher-forced decode
+    at the reference's tolerance with a capacity that never binds (capacity
+    factor E, so C = T*k: a batch of 64 prefill tokens and one of 2 decode
+    tokens drop different assignments at the config's capacity factor by
+    design, and the lp router couples a batch's tokens only where capacity
+    binds); at the
+    config's own capacity factor, prefill and decode steps twice, bit-equal
+    (the fixed-order combine); and `lp_route` at its properties
+    (tests/test_moe_router.py:58) on the model's router probabilities."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.moe import lp_route
+
+    start = lm_release()
+    reset_counts()
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_layers=2)
+    master = Model(cfg).init(torch.Generator(device=LM_DEVICE).manual_seed(0))
+    params = Model(cfg)._lowp(master)
+    del master
+    lm_release()
+    m = cfg.moe
+    out = {"phase": "lm_deepseek_v2_2l", "params": Model(cfg).param_count(),
+           "bf16_param_bytes": tree_nbytes(params), "allocated_before_gb": start["allocated_gb"]}
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(LM_DEVICE)
+    with torch.no_grad():
+        for router in ("topk", "lp"):
+            rcfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, router=router))
+            nodrop = Model(dataclasses.replace(rcfg, moe=dataclasses.replace(
+                rcfg.moe, capacity_factor=float(m.num_experts))))
+            res = {"prefill_vs_decode_no_drops": lm_public(lm_prefill_vs_decode(
+                nodrop, params, toks, f"deepseek-v2 2 layers {router}"))}
+            model = Model(rcfg)
+            bits = []
+            for _ in range(2):
+                lg, cache = model.prefill(params, {"tokens": toks}, max_seq=36)
+                steps = [lg]
+                for t in range(2):
+                    lg, cache = model.decode_step(params, torch.argmax(steps[0][:, -1], -1)[:, None],
+                                                  32 + t, cache)
+                    steps.append(lg)
+                bits.append((steps, cache))
+            same = all(torch.equal(a, b) for a, b in zip(bits[0][0], bits[1][0])) and all(
+                torch.equal(bits[0][1][k], bits[1][1][k]) for k in bits[0][1])
+            if not same:
+                fail(f"deepseek-v2 2 layers {router}: two runs differ")
+            res["two_runs_bit_equal"] = True
+            res["decode_step"] = {k: v for k, v in lm_decode_times(
+                model, params, 4, 64, 40, f"lm_deepseek_{router}_decode").items()
+                if k in ("ms", "host_enqueue_ms", "weight_bytes", "bound_ms", "profile",
+                         "device_idle_share")}
+            res["decode_step"]["bound_note"] = "all 160 experts' weights (the [E, C] einsum reads them)"
+            out[router] = res
+        # lp_route on the MoE layer's router at the full width (unit-rms inputs)
+        T, E, k = 256, m.num_experts, m.top_k
+        x = torch.from_numpy(np.random.default_rng(3).normal(size=(T, cfg.d_model))
+                             .astype(np.float32)).to(LM_DEVICE).to(torch.bfloat16)
+        w = params["blocks"]["moe"]["router"]["w"][0]
+        probs = torch.softmax((x @ w).float(), -1)
+        cap = T * k / E * 1.1
+        xr = lp_route(probs, k, capacity=cap, iters=64, gamma=0.05)
+        props = {"min": float(xr.min()), "max_row_sum": float(xr.sum(1).max()),
+                 "max_load": float(xr.sum(0).max()), "capacity": cap}
+        if not (props["min"] >= -1e-5 and props["max_row_sum"] <= k + 1e-3
+                and props["max_load"] <= cap * 1.25):
+            fail(f"lp_route properties: {props}")
+        C = int(max(1, round(T * k / E * m.capacity_factor)))
+        own = lp_route(probs, k, capacity=C, iters=m.lp_iters, gamma=m.lp_gamma)
+        props["model_settings"] = {"C": C, "max_load": float(own.sum(0).max()),
+                                   "softmax_max_load": float(probs.sum(0).max() * k)}
+        out["lp_route"] = props
+    out["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    lm_no_kernel("lm_deepseek_v2_2l")
+    emit(out)
+    del params
+    return out
+
+
+def phase_lm_mamba2() -> dict:
+    """mamba2-1.3b whole (48 layers): the chunked SSD prefill of 512 tokens
+    (two 256-token chunks) against teacher-forced decode at the reference's
+    atol/rtol 0.05 in fp32 compute, and in bf16 on the same params cut to 2
+    layers; the bf16 prefill at full depth measured against the fp32
+    prefill; the bf16 engine over 4 requests of 32-token prompts, 16 new
+    tokens each; a decode step's time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    start = lm_release()
+    reset_counts()
+    cfg = get_config("mamba2-1.3b")
+    model = Model(cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)).to(LM_DEVICE)
+    with torch.no_grad():
+        master = model.init(torch.Generator(device=LM_DEVICE).manual_seed(0))
+        pvd32 = lm_prefill_vs_decode(Model(dataclasses.replace(cfg, dtype="float32")), master,
+                                     toks, "mamba2 fp32", cache_dtype=torch.float32)
+        cut16 = Model(dataclasses.replace(cfg, num_layers=2))
+        pvd_cut = lm_prefill_vs_decode(cut16, cut16._lowp(
+            dict(master, blocks=tree_map(lambda x: x[:2], master["blocks"]))), toks,
+            "mamba2 2 layers bf16")
+        params = model._lowp(master)
+        del master
+        lm_release()
+        pf16 = model.prefill(params, {"tokens": toks}, max_seq=516)[0][:, -1].float()
+        prompts = [rng.integers(0, cfg.vocab_size, 32).astype(np.int32) for _ in range(4)]
+        run = lm_engine_run(model, params, prompts, 16, 4)
+        run.pop("engine")
+        decode = lm_decode_times(model, params, 4, 64, 40, "lm_mamba2_decode")
+    lm_no_kernel("lm_mamba2")
+    out = {"phase": "lm_mamba2", "layers": cfg.num_layers, "params": model.param_count(),
+           "bf16_param_bytes": tree_nbytes(params), "allocated_before_gb": start["allocated_gb"],
+           "prefill_vs_decode": {
+               "fp32_48_layers": lm_public(pvd32), "bf16_2_layers": lm_public(pvd_cut),
+               "bf16_48_layers_prefill_against_fp32": float(
+                   (pf16 - pvd32["_logits"]["prefill"]).abs().max())},
+           "engine": {"requests": 4, "prompt": 32, "max_new": 16, "slots": 4,
+                      "seconds": run["seconds"], "tok_per_s": run["tok_per_s"]},
+           "decode_step": decode, "serve_peak_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    del params
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", type=int, default=1_000_000,
@@ -2743,7 +3195,7 @@ def main() -> int:
 
     main_counts = main_path["summary"]["launch_counts"]
     pdhg_counts = pdhg["summary"]["launch_counts"]
-    emit({"kernels": [
+    kernels = {"kernels": [
         entry("dual_oracle", "src/repro/kernels/dual_oracle.py:87",
               main_path["summary"]["kernel_launches"],
               max(worst(sweep), worst(sweep_batched), times["call"]["main_path_x_max_abs_err"],
@@ -2783,7 +3235,17 @@ def main() -> int:
               path3["launch_counts"]["simplex_proj"],
               max(worst(sweep3), times23["simplex"]["main_path_max_abs_err"]),
               times23["simplex"]),
-    ]})
+    ]}
+
+    # 9. the LM substrate's serving path, with the solver's tensors released
+    del main_path, path2, path3, pdhg, pdhg_step, times, times23, cadence, service
+    del serve_p, service_pdhg, sweep, sweep2, sweep3, sweep_batched, sweep_rows
+    timed(phase_lm_serve_cli)
+    timed(phase_lm_qwen3_8b)
+    timed(phase_lm_deepseek_v2_2l)
+    timed(phase_lm_mamba2)
+
+    emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

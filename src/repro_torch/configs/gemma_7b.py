@@ -1,0 +1,31 @@
+"""Gemma-7B [dense]: GeGLU, head_dim=256, MQA on the 2b sibling [arXiv:2403.08295]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    d_ff=24576,
+    vocab_size=256000,
+    mlp_type="geglu",
+    tie_embeddings=True,
+)
+
+REDUCED = ModelConfig(
+    name="gemma-7b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=4,
+    head_dim=32,
+    d_ff=128,
+    vocab_size=512,
+    mlp_type="geglu",
+    tie_embeddings=True,
+    remat=False,
+)

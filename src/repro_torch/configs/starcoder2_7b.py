@@ -1,0 +1,25 @@
+"""StarCoder2-7B [dense]: GQA kv=4, RoPE [arXiv:2402.19173]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4608,
+    num_heads=36,
+    num_kv_heads=4,
+    d_ff=18432,
+    vocab_size=49152,
+)
+
+REDUCED = ModelConfig(
+    name="starcoder2-7b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=72,
+    num_heads=6,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=512,
+    remat=False,
+)

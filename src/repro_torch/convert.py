@@ -16,7 +16,10 @@ pieces: a published `DualSnapshot` (its duals, instance and maps) and a
 `ServiceConfig`, and the lanes of a batched solve (`stacked_from_reference`:
 instances of one shape, or the reference's own stack, as the port's stacked
 instance).  Tenant state crosses through the checkpoint format, which
-both packages share (`repro_torch.checkpoint`).
+both packages share (`repro_torch.checkpoint`).  The LM substrate's params
+and caches travel as trees of numpy leaves (`lm_params_from_reference`,
+`lm_cache_from_reference`): the same tree paths, stacked leading layer
+dimensions and the `prefix` list kept.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ __all__ = [
     "formulation_from_reference",
     "instance_from_reference",
     "lam_from_numpy",
+    "lm_cache_from_reference",
+    "lm_params_from_reference",
     "scatter_plan_from_reference",
     "service_config_from_reference",
     "snapshot_from_reference",
@@ -197,3 +202,26 @@ def stacked_from_reference(insts, device="cuda") -> BucketedInstance:
     if isinstance(insts, (list, tuple)):
         return stack_lanes([instance_from_reference(i, device) for i in insts])
     return instance_from_reference(insts, device)
+
+
+def _lm_tree(tree, device):
+    if isinstance(tree, dict):
+        return {str(k): _lm_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_lm_tree(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def lm_params_from_reference(tree, device="cuda") -> dict:
+    """The port's LM params (`repro_torch.models.Model`) of the reference's
+    param tree, given with numpy leaves (`jax.tree.map(np.asarray, params)`):
+    the same paths, stacked leading layer dimensions and the `prefix` list
+    kept, every leaf in its own dtype (bfloat16 leaves bit for bit)."""
+    return _lm_tree(tree, device)
+
+
+def lm_cache_from_reference(cache, device="cuda") -> dict:
+    """The port's decode cache of the reference's (`Model.init_cache`,
+    `prefill` or `decode_step`), given with numpy leaves: the same names and
+    shapes, bfloat16 and int8 leaves bit for bit."""
+    return _lm_tree(cache, device)

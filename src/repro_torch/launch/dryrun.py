@@ -29,7 +29,9 @@ and the port's own byte model (`kernels.ops.oracle_slab_slot_bytes`,
     whether they fit in the card's 80 GB;
   * `roofline`: the three terms on the H100 (`analysis.roofline.H100`).
 
-The LM substrate's cells (`--arch`) wait for the LM substrate's port.
+The LM substrate's cells (`--arch`) lower its train and serve steps over a
+mesh; they wait for the training slice (`training/`, its sharding rules)
+and `launch/mesh.py`.  The models, configs and serving engine are ported.
 """
 from __future__ import annotations
 
@@ -60,8 +62,8 @@ H100_SMS = 132  # streaming multiprocessors of the H100 SXM5
 def run_arch_cell(*_args, **_kwargs) -> dict:
     """The reference's LM cells (architecture x shape x mesh)."""
     raise NotImplementedError(
-        "arch cells lower the LM substrate (models, training, serving), which the "
-        "PyTorch port does not have yet; only solver cells (--solver) run")
+        "arch cells lower the LM substrate's train and serve steps over a mesh, which "
+        "wait for the training slice and launch/mesh.py; only solver cells (--solver) run")
 
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
@@ -274,7 +276,8 @@ def run_solver_cell(inst_name: str, shards: int, *, comm_mode="psum", compress="
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    ap.add_argument("--arch", help="LM cells: not ported (the LM substrate is not)")
+    ap.add_argument("--arch", help="LM cells: not ported (they wait for the training slice "
+                                   "and the mesh)")
     ap.add_argument("--solver", help=f"one of {sorted(LP_INSTANCES)}")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--sources", type=int, default=None,

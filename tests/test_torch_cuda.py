@@ -10,7 +10,10 @@ tenant axis (B stacked instances in one call) bitwise each lane's solo
 call, the primal step over a list of requested rows bitwise the whole-slab
 call's rows, one launch per call of each, the batched pool's lanes against
 their solo solves, and a served batch bitwise the direct projection of its
-snapshot on the card.
+snapshot on the card.  And the LM substrate (no kernel of the port): every
+reduced architecture in fp32 compute on the card against the CPU (prefill
+and two decode steps, rtol 1e-4 + atol 1e-5), and a bf16 MoE decode step
+(MLA, the fixed-order combine, both routers) bitwise the same in two runs.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -27,10 +30,13 @@ point, exactly, so its A x is held bitwise equal to `ref.fixed_point_hist`
 and the same under any grid.
 No JAX here: the machine with the card need not have it.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS, get_reduced_config
 from repro_torch.core import Maximizer, MaximizerConfig, MatchingObjective
 from repro_torch.instances import (
     MatchingInstanceSpec, bucketize, generate_matching_instance,
@@ -43,6 +49,7 @@ from repro_torch.kernels import dual_primal as kdp
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import simplex_proj as ksp
+from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -802,3 +809,83 @@ def test_batched_pdhg_solve_lanes_are_solo_on_card(cuda, fused):
         s = pdhg_raw_solve(lane_instance(stacked, b), lam0[b], cfg, True, fused, pcfg=pcfg)
         assert int(raw.iters[b, 0]) == int(s.iters[0]) and int(raw.restarts[b]) == int(s.restarts)
         assert torch.equal(raw.lam[b], s.lam), b
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate (no kernel of the port: matmuls, einsums and PyTorch ops)
+# ---------------------------------------------------------------------------
+
+
+def _lm_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    if cfg.encdec:
+        return {"embeds": torch.from_numpy(rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)),
+                "tokens": toks[:, :1]}
+    if cfg.frontend == "patch":
+        P = cfg.frontend_len
+        return {"embeds": torch.from_numpy(rng.normal(size=(B, P, cfg.d_model)).astype(np.float32)),
+                "tokens": toks[:, : S - P]}
+    return {"tokens": toks}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_reduced_arch_on_card_matches_cpu(cuda, arch):
+    """Every reduced arch in fp32 compute: prefill, then two decode steps from
+    its cache, on the card against the same on the CPU (rtol 1e-4 + atol
+    1e-5, logits and caches)."""
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = _lm_batch(cfg, 2, 16, seed=1)
+    out = {}
+    with torch.no_grad():
+        for dev in ("cpu", cuda):
+            p, b = _to(params, dev), _to(batch, dev)
+            logits, cache = model.prefill(p, b, max_seq=20)
+            steps = [logits]
+            pos = 1 if cfg.encdec else 16
+            for t in range(2):
+                tok = torch.argmax(steps[0][:, -1], -1)[:, None]  # the CPU's first token
+                logits, cache = model.decode_step(p, tok.to(dev), pos + t, cache)
+                steps.append(logits)
+            out[str(dev)] = [s.cpu() for s in steps], {k: v.cpu() for k, v in cache.items()}
+    (lc, cc), (lg, cg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(lg, lc):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for k in cc:
+        torch.testing.assert_close(cg[k], cc[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("router", ["topk", "lp"])
+def test_lm_bf16_moe_decode_step_is_bitwise_repeatable(cuda, router):
+    """A bf16 MoE decode step (MLA, 8 experts, shared experts, the fixed-
+    order combine) gives the same bits in two runs from the same cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import Model
+
+    cfg = get_reduced_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router=router))
+    model = Model(cfg)
+    params = model._lowp(model.init(torch.Generator(device=cuda).manual_seed(0)))
+    with torch.no_grad():
+        _, cache = model.prefill(params, _to(_lm_batch(cfg, 4, 16, seed=2), cuda), max_seq=24)
+        tok = torch.arange(4, device=cuda)[:, None] * 7
+        runs = []
+        for _ in range(2):
+            c = {k: v.clone() for k, v in cache.items()}
+            logits, c = model.decode_step(params, tok, 16, c)
+            runs.append((logits, c))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in cache:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
