@@ -107,6 +107,16 @@ Phases, each printing one line before the last:
      bit-equal at the config's capacity, `lp_route` at its properties;
      lm_mamba2: mamba2-1.3b whole, the 512-token SSD prefill against decode
      at 0.05 in fp32 at full depth and in bf16 cut to 2 layers, the engine.
+ 10. the LM substrate's training path (no kernel of the port either):
+     lm_train_qwen3_8b: qwen3-8b at full width cut to 8 of 36 layers (the
+     whole model's training state does not fit 80 GB), the 2-layer cut's
+     fp32 loss and gradients on the card against the CPU, then 8 steps of
+     `train_loop` (bf16 compute, fp32 masters, remat, batch 8 x 256 at the
+     full vocabulary): finite losses, no retry, ms per step, tokens/s, peak
+     memory, a profiled step's idle share, the step's parts and its bound;
+     lm_train_cli: `python -m repro_torch.launch.train --reduced` in
+     process, 30 steps, and a run resumed from that run's step-20
+     checkpoint alone, its final state bitwise the uninterrupted one's.
 The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
 lanes, each lane bitwise its solo call, with one gamma and with a gamma per
 lane) and sweep_rows (kernel 2 over row
@@ -3115,6 +3125,229 @@ def phase_lm_mamba2() -> dict:
     del params
     return out
 
+
+# ---------------------------------------------------------------------------
+# The LM substrate's training path: no kernel of the port either (autograd
+# over the same matmuls and einsums, eager AdamW).
+# ---------------------------------------------------------------------------
+
+
+class LoopLog:
+    """The training loop's log messages (logger "repro_torch.train") while
+    attached; `retries` counts its "... retrying" records."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("repro_torch.train")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    @property
+    def retries(self) -> int:
+        return sum("retrying" in m for m in self.messages)
+
+
+def lm_train_bound(cfg, params, batch: int, seq: int) -> dict:
+    """The least time of one train step, as two phases in series: the
+    forward and backward's matmul operations (6 per matmul weight per token;
+    the embedding gather none) plus attention's (QK^T and PV over the whole
+    S x S, as the chunked attention computes them: 4 B S^2 H Dh per layer
+    forward, 3x with the backward) at the H100's bf16 peak; then the bytes
+    of the fp32 masters' bf16 cast (4 read + 2 written), the grad norm (4
+    read) and AdamW (p, g, m, v read, p, m, v written: 28) per parameter at
+    its HBM rate."""
+    n = sum(x.numel() for x in tree_leaves(params))
+    mm = params["lm_head"].numel() + sum(
+        x.numel() for x in tree_leaves(params["blocks"]) if x.ndim == 3)
+    attn = 3 * 4 * batch * seq * seq * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    ops = 6 * mm * batch * seq + attn
+    byts = 38 * n
+    o_ms, b_ms = ops / BF16_FLOPS * 1e3, byts / HBM_BYTES_PER_S * 1e3
+    return {"params": n, "matmul_params": mm, "ops": ops, "attention_ops": attn,
+            "bytes": byts, "ops_ms": o_ms, "bytes_ms": b_ms, "bound_ms": o_ms + b_ms,
+            "bound_by": "operations, then bytes (two phases in series)"}
+
+
+def phase_lm_train_qwen3_8b() -> dict:
+    """qwen3-8b at its published width (d_model 4096, 32/8 heads, d_ff
+    12288, vocab 151,936, qk_norm, untied head, remat, bf16 compute, fp32
+    masters) cut in depth to 8 of its 36 layers: at 36 the training state
+    (fp32 params, grads and two AdamW moments, 16 B per parameter) is ~131
+    GB.  First the card against the CPU: one `value_and_grad(Model.loss)`
+    in fp32 on the same params cut to 2 layers, batch 1 x 32: loss and
+    global grad norm at rtol 1e-5, named leaves at 1e-4 of each leaf's
+    largest |g|.  Then 8 steps through `train_loop` (no checkpoint dir) over
+    `SyntheticLMData(batch 8, seq 256, seed 0)` at the full vocabulary with
+    the CLI's AdamW: every loss finite, no retry, no kernel of the port;
+    host ms per step (each step ending in a synchronize; median of steps
+    2-8), tokens/s, peak memory, one profiled step's device busy time and
+    idle share, the step's bound, and its parts by CUDA events (forward and
+    backward, the bf16 cast, the grad norm, the in-place AdamW)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import Model
+    from repro_torch.training import (
+        AdamWConfig, TrainLoopConfig, adamw_update_, global_norm, init_train_state,
+        make_train_step, train_loop, value_and_grad,
+    )
+    from repro_torch.training.loop import batch_to_device
+
+    start = lm_release()
+    reset_counts()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=8)
+    model = Model(cfg)
+    B, S, steps = 8, 256, 8
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=LM_DEVICE).manual_seed(0),
+                             device=LM_DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the card against the CPU: 2 layers of the same params in fp32
+    cut32 = Model(dataclasses.replace(cfg, num_layers=2, dtype="float32"))
+    small = SyntheticLMData(cfg, batch=1, seq=32, seed=1)(0)
+    res = {}
+    for dev in (LM_DEVICE, "cpu"):
+        p = {k: state.params[k].to(dev) for k in ("embed", "final_norm", "lm_head")}
+        p["blocks"] = tree_map(lambda x: x[:2].to(dev), state.params["blocks"])
+        loss, grads = value_and_grad(cut32, p, batch_to_device(small, dev))
+        res[dev] = {"loss": float(loss), "grad_norm": float(global_norm(grads)),
+                    "leaves": {"lm_head": grads["lm_head"].cpu(), "embed": grads["embed"].cpu(),
+                               "final_norm": grads["final_norm"].cpu(),
+                               "blocks.attn.wq.w": grads["blocks"]["attn"]["wq"]["w"].cpu(),
+                               "blocks.mlp.w_down.w": grads["blocks"]["mlp"]["w_down"]["w"].cpu(),
+                               "blocks.ln1": grads["blocks"]["ln1"].cpu()}}
+        del p, grads
+    gpu, cpu = res[LM_DEVICE], res["cpu"]
+    cut = {"loss": [gpu["loss"], cpu["loss"]], "grad_norm": [gpu["grad_norm"], cpu["grad_norm"]],
+           "loss_rel_err": abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grad_norm_rel_err": abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"],
+           "rtol": 1e-5, "leaf_tol": "1e-4 x max |g| of the leaf", "leaves": {}}
+    if not (cut["loss_rel_err"] <= 1e-5 and cut["grad_norm_rel_err"] <= 1e-5):
+        fail(f"qwen3-8b 2 layers fp32 train: card against CPU {cut}")
+    for name, want in cpu["leaves"].items():
+        got = gpu["leaves"][name]
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        cut["leaves"][name] = {"max_abs_err": err, "max_abs": scale}
+        if not err <= 1e-4 * scale:
+            fail(f"qwen3-8b 2 layers fp32 grad {name}: card against CPU {err} (max |g| {scale})")
+    del res, gpu, cpu
+    lm_release()
+
+    data = SyntheticLMData(cfg, batch=B, seq=S, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps)
+    losses, marks = [], []
+
+    def on_step(k, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+
+    reset_counts()
+    with LoopLog() as loop_log:
+        marks.append(time.perf_counter())
+        state = train_loop(model, data, opt, TrainLoopConfig(total_steps=steps), state=state,
+                           on_step=on_step, device=LM_DEVICE)
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    lm_no_kernel("lm_train_qwen3_8b")
+    if loop_log.retries:
+        fail(f"lm_train_qwen3_8b: the loop retried {loop_log.retries} step(s)")
+    if not (len(losses) == steps and all(math.isfinite(x) for x in losses)):
+        fail(f"lm_train_qwen3_8b: losses {losses}")
+    if int(state.step) != steps:
+        fail(f"lm_train_qwen3_8b: state at step {int(state.step)}")
+    peak = torch.cuda.max_memory_allocated()
+    median_ms = float(np.median(step_ms[1:]))
+
+    step_fn, _, _ = make_train_step(model, opt)
+    batch = batch_to_device(data(steps), LM_DEVICE)
+    prof = profile_window(lambda: step_fn(state, batch), "lm_train_qwen3_8b_step", 1)
+    bound = lm_train_bound(cfg, state.params, B, S)
+    # the step's parts by CUDA events; the AdamW update runs last, on spent
+    # grads (it overwrites them as scratch), once the state's checks are done
+    parts = {"fwd_bwd_ms": event_ms(lambda: value_and_grad(model, state.params, batch), 2, 1),
+             "bf16_cast_ms": event_ms(lambda: model._lowp(state.params), 3, 1)}
+    _, grads = value_and_grad(model, state.params, batch)
+    parts["grad_norm_ms"] = event_ms(lambda: global_norm(grads), 3, 1)
+    parts["adamw_ms"] = event_ms(lambda: adamw_update_(opt, grads, state.opt, state.params), 2, 1)
+    del grads
+    out = {"phase": "lm_train_qwen3_8b", "layers": cfg.num_layers, "params": model.param_count(),
+           "allocated_before_gb": start["allocated_gb"], "init_s": init_s,
+           "batch": B, "seq": S, "tokens_per_step": B * S, "steps": steps,
+           "cut_2_layers_fp32_card_vs_cpu": cut, "losses": losses, "step_host_ms": step_ms,
+           "median_step_ms_2_to_8": median_ms, "tokens_per_s": B * S / median_ms * 1e3,
+           "retries": loop_log.retries, "train_peak_bytes": peak,
+           "profile": {k: prof[k] for k in ("wall_ms_per_iter", "device_busy_ms_per_iter",
+                                            "device_idle_share", "top_device_ms_per_iter")},
+           "parts": parts, "bound": bound, "median_over_bound": median_ms / bound["bound_ms"]}
+    emit(out)
+    del state, step_fn, batch
+    return out
+
+
+def phase_lm_train_cli() -> dict:
+    """`python -m repro_torch.launch.train --arch qwen3-8b --reduced` in
+    process (batch 8, seq 128): `--steps 30 --save-every 10` uninterrupted;
+    then a run stopped after its step-20 save (that checkpoint alone in a
+    directory of its own) resumed with the same flags; the two step-30
+    checkpoints bit-equal, every array.  The CLI's AdamW schedule spans
+    --steps, so a `--steps 20` run is not the first 20 steps of a
+    `--steps 30` one; the stop is therefore made at the step-20 save."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.launch import train
+
+    lm_release()
+    root = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", "qwen3-8b", "--reduced", "--steps", "30", "--save-every", "10"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with LoopLog() as loop_log:
+        train.main(args + ["--ckpt-dir", str(root / "full")])
+        t1 = time.perf_counter()
+        shutil.copytree(root / "full" / "step_00000020", root / "stopped" / "step_00000020")
+        train.main(args + ["--ckpt-dir", str(root / "stopped")])
+        t2 = time.perf_counter()
+    lm_no_kernel("lm_train_cli")
+    if loop_log.retries:
+        fail(f"lm_train_cli: the loop retried {loop_log.retries} step(s)")
+    if "resumed from step 20" not in loop_log.messages:
+        fail(f"lm_train_cli: the second run did not resume at step 20: {loop_log.messages}")
+    if latest_step(str(root / "full")) != 30 or latest_step(str(root / "stopped")) != 30:
+        fail("lm_train_cli: a run did not end with its step-30 checkpoint")
+    full, _ = CheckpointManager(str(root / "full")).restore_flat(30)
+    resumed, _ = CheckpointManager(str(root / "stopped")).restore_flat(30)
+    differ = sorted(k for k in full if k not in resumed or not (
+        full[k].dtype == resumed[k].dtype and (full[k] == resumed[k]).all()))
+    if differ or sorted(full) != sorted(resumed):
+        fail(f"lm_train_cli: the resumed run's step-30 state differs from the uninterrupted "
+             f"run's in {differ[:5]}")
+    losses = [m for m in loop_log.messages if m.startswith("step ")]
+    out = {"phase": "lm_train_cli", "argv": args, "uninterrupted_s": t1 - t0,
+           "resumed_s": t2 - t1, "arrays": len(full), "bitwise_equal": True,
+           "log": losses}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", type=int, default=1_000_000,
@@ -3244,6 +3477,9 @@ def main() -> int:
     timed(phase_lm_qwen3_8b)
     timed(phase_lm_deepseek_v2_2l)
     timed(phase_lm_mamba2)
+    # 10. the LM substrate's training path
+    timed(phase_lm_train_qwen3_8b)
+    timed(phase_lm_train_cli)
 
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

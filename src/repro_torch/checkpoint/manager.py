@@ -6,9 +6,9 @@ package restores in the other:
 
   * one `arrays.npz` per checkpoint, every leaf of the state under its path
     rendered as the reference renders it (`jax.tree_util.keystr`: a dict key
-    as `['key']`, a list or tuple position as `[0]`, nested paths
-    concatenated), leaves in the reference's flattening order (dict keys
-    sorted);
+    as `['key']`, a NamedTuple field as `.name`, a list or plain tuple
+    position as `[0]`, nested paths concatenated), leaves in the reference's
+    flattening order (dict keys sorted);
   * `manifest.json` with `step`, the sorted `keys`, `nbytes` and the JSON
     `meta` when given;
   * writes go to `step_XXXXXXXX.<pid>-<thread>.tmp/` and then `os.replace`
@@ -17,8 +17,8 @@ package restores in the other:
   * async mode: the host copy of the state is made synchronously (a
     consistent snapshot), the file write on a background thread;
   * keep-K garbage collection and an optional SIGTERM save hook;
-  * `restore` takes a template (a nested dict, list or tuple of tensors or
-    arrays) and a `device=` for the restored tensors, in place of the
+  * `restore` takes a template (a nested dict, list, tuple or NamedTuple of
+    tensors or arrays) and a `device=` for the restored tensors, in place of the
     reference's JAX shardings; `restore_flat` is template-free and returns
     the flat arrays plus `meta` (the service checkpoints its tenants' slabs
     this way, since their shapes drift with the ingested deltas).
@@ -55,11 +55,18 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _items(tree, path: str = ""):
     """(rendered path, leaf) of every leaf, in the reference's order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], f"{path}[{k!r}]")
+    elif _is_namedtuple(tree):
+        for name, v in zip(tree._fields, tree):
+            yield from _items(v, f"{path}.{name}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, f"{path}[{i}]")
@@ -74,6 +81,9 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 def _unflatten(template, leaves: dict, path: str = ""):
     if isinstance(template, dict):
         return {k: _unflatten(v, leaves, f"{path}[{k!r}]") for k, v in template.items()}
+    if _is_namedtuple(template):
+        return type(template)(*(_unflatten(v, leaves, f"{path}.{name}")
+                                for name, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
         out = [_unflatten(v, leaves, f"{path}[{i}]") for i, v in enumerate(template)]
         return type(template)(out) if isinstance(template, tuple) else out

@@ -19,7 +19,8 @@ instance).  Tenant state crosses through the checkpoint format, which
 both packages share (`repro_torch.checkpoint`).  The LM substrate's params
 and caches travel as trees of numpy leaves (`lm_params_from_reference`,
 `lm_cache_from_reference`): the same tree paths, stacked leading layer
-dimensions and the `prefix` list kept.
+dimensions and the `prefix` list kept; so does a training state
+(`train_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ __all__ = [
     "snapshot_from_reference",
     "stacked_from_reference",
     "tensor_from_numpy",
+    "train_state_from_reference",
 ]
 
 
@@ -225,3 +227,18 @@ def lm_cache_from_reference(cache, device="cuda") -> dict:
     `prefill` or `decode_step`), given with numpy leaves: the same names and
     shapes, bfloat16 and int8 leaves bit for bit."""
     return _lm_tree(cache, device)
+
+
+def train_state_from_reference(state, device="cuda"):
+    """The port's `TrainState` (`repro_torch.training`) of the reference's,
+    given with numpy leaves (`jax.tree.map(np.asarray, state)`): params and
+    both AdamW moments as `lm_params_from_reference` carries params, the
+    int32 count and step as 0-dim tensors."""
+    from repro_torch.training import OptState, TrainState
+
+    return TrainState(
+        params=_lm_tree(state.params, device),
+        opt=OptState(m=_lm_tree(state.opt.m, device), v=_lm_tree(state.opt.v, device),
+                     count=tensor_from_numpy(state.opt.count, device)),
+        step=tensor_from_numpy(state.step, device),
+    )

@@ -1,0 +1,4 @@
+"""Data pipeline substrate (port of `repro.data`)."""
+from repro_torch.data.pipeline import SyntheticLMData
+
+__all__ = ["SyntheticLMData"]

@@ -30,8 +30,9 @@ and the port's own byte model (`kernels.ops.oracle_slab_slot_bytes`,
   * `roofline`: the three terms on the H100 (`analysis.roofline.H100`).
 
 The LM substrate's cells (`--arch`) lower its train and serve steps over a
-mesh; they wait for the training slice (`training/`, its sharding rules)
-and `launch/mesh.py`.  The models, configs and serving engine are ported.
+mesh; they wait for the sharding rules (`training/sharding_rules.py`)
+and `launch/mesh.py`.  The models, configs, serving engine and the
+single-device training path are ported.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def run_arch_cell(*_args, **_kwargs) -> dict:
     """The reference's LM cells (architecture x shape x mesh)."""
     raise NotImplementedError(
         "arch cells lower the LM substrate's train and serve steps over a mesh, which "
-        "wait for the training slice and launch/mesh.py; only solver cells (--solver) run")
+        "wait for the sharding rules and launch/mesh.py; only solver cells (--solver) run")
 
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
@@ -276,8 +277,8 @@ def run_solver_cell(inst_name: str, shards: int, *, comm_mode="psum", compress="
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    ap.add_argument("--arch", help="LM cells: not ported (they wait for the training slice "
-                                   "and the mesh)")
+    ap.add_argument("--arch", help="LM cells: not ported (they wait for the sharding "
+                                   "rules and the mesh)")
     ap.add_argument("--solver", help=f"one of {sorted(LP_INSTANCES)}")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--sources", type=int, default=None,

@@ -17,19 +17,24 @@ MoE stacks' dense `prefix` a list, the hybrid's one `shared_attn`.  Each
 dimension.  Entry points:
 
   init(gen)                              -> params (fp32 masters)
+  loss(params, batch)                    -> scalar LM loss (autograd-ready)
   prefill(params, batch, max_seq)        -> (logits_last, cache)
   decode_step(params, token, pos, cache) -> (logits, cache)
   init_cache(batch, seq)                 -> cache dict
 
 `decode_step` updates the cache's tensors in place and returns the cache
 (the reference's engine donates the cache to each step).  The training
-half (`loss`, `hidden_states`) comes with the training slice.
+forward unbinds each stacked leaf once (`_unstack`: its backward is one
+stack, where a per-layer `x[i]` would write a zero tensor the size of the
+whole stack per layer) and, under `cfg.remat`, checkpoints every block
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint`).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -52,9 +57,23 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _layer(tree, i: int):
-    """Layer i of a stacked param tree (views, no copies)."""
-    return _tree_map(lambda x: x[i], tree)
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked param tree (views, no copies), every leaf
+    unbound once."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL in fp32 over the labels >= 0 (-100 = ignore)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    nll = (lse - picked) * valid
+    return torch.sum(nll) / torch.clamp_min(torch.sum(valid), 1.0)
 
 
 def _leaves(tree) -> list:
@@ -185,6 +204,33 @@ class Model:
         return total
 
     # -------------------------------------------------------------- blocks
+    def _remat(self, fn, *args):
+        """fn(*args); under `cfg.remat`, while autograd records, its
+        activations are recomputed in the backward instead of kept."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    def _block_fwd(self, p, h, positions):
+        """One block of the main stack (Mamba2, or attention + MLP / MoE)."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            out, _ = S.apply_mamba(p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.rmsnorm_eps))
+            return h + out
+        hn = L.rms_norm(h, p["ln1"], cfg.rmsnorm_eps)
+        if cfg.mla is not None:
+            a, _, _ = L.apply_mla(p["attn"], cfg, hn, positions)
+        else:
+            a, _ = L.apply_attention(p["attn"], cfg, hn, positions, causal=cfg.causal)
+        h = h + a
+        hn = L.rms_norm(h, p["ln2"], cfg.rmsnorm_eps)
+        if cfg.family == "moe":
+            B, Sq, d = hn.shape
+            out = M.apply_moe(p["moe"], cfg, hn.reshape(B * Sq, d)).reshape(B, Sq, d)
+        else:
+            out = L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
+        return h + out
+
     def _dense_block_fwd(self, p, h, positions, *, causal=True, kv=None):
         """Attention + plain MLP block (prefix layers, encoder blocks)."""
         cfg = self.cfg
@@ -212,10 +258,52 @@ class Model:
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()].to(_dtype(self.cfg))
 
+    # ------------------------------------------------------------- forward
+    def _stack(self, params, h, positions):
+        """The main block stack over hidden states h [B,S,d]; the hybrid's
+        shared block after every `attn_period`-th layer."""
+        cfg = self.cfg
+        shared = params.get("shared_attn")
+
+        def body(p, hh, idx):
+            hh = self._block_fwd(p, hh, positions)
+            if cfg.family == "hybrid" and cfg.attn_period and (idx + 1) % cfg.attn_period == 0:
+                hh, _ = self._shared_attn_fwd(shared, hh, positions)
+            return hh
+
+        n_scan = cfg.num_layers - cfg.n_dense_layers
+        for i, p in enumerate(_unstack(params["blocks"], n_scan)):
+            h = self._remat(body, p, h, i)
+        return h
+
+    def hidden_states(self, params, tokens, extra_embeds=None):
+        """Token (+frontend) embedding -> block stack -> final norm."""
+        cfg = self.cfg
+        h = self._embed(params, tokens)
+        if extra_embeds is not None:  # vlm/audio stub: precomputed embeddings
+            h = torch.cat([extra_embeds.to(_dtype(cfg)), h], dim=1)
+        B, Sq, _ = h.shape
+        positions = torch.arange(Sq, device=h.device).expand(B, Sq)
+        fwd = lambda pp, hh: self._dense_block_fwd(pp, hh, positions)[0]
+        for p in params.get("prefix", []):
+            h = self._remat(fwd, p, h)
+        h = self._stack(params, h, positions)
+        return L.rms_norm(h, params["final_norm"], cfg.rmsnorm_eps)
+
     def logits(self, params, h):
         cfg = self.cfg
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ w.to(h.dtype)
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """batch: tokens [B,S], labels [B,S] (-100 = ignore), optional
+        'embeds' [B,P,d] frontend stub (labels then cover P+S positions),
+        tensors on the params' device.  Differentiable in the fp32 masters."""
+        params = self._lowp(params)
+        if self.cfg.encdec:
+            return self._encdec_loss(params, batch)
+        h = self.hidden_states(params, batch["tokens"], batch.get("embeds"))
+        return _nll(self.logits(params, h), batch["labels"])
 
     # --------------------------------------------------------- encoder-decoder
     def _encode(self, params, embeds):
@@ -223,24 +311,27 @@ class Model:
         h = embeds.to(_dtype(cfg))
         B, Sq, _ = h.shape
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
-        for i in range(cfg.enc_layers):
-            h, _ = self._dense_block_fwd(_layer(params["enc_blocks"], i), h, positions,
-                                         causal=False)
+        body = lambda p, hh: self._dense_block_fwd(p, hh, positions, causal=False)[0]
+        for p in _unstack(params["enc_blocks"], cfg.enc_layers):
+            h = self._remat(body, p, h)
         return h
 
     def _decode_stack(self, params, h, positions, memory):
         cfg = self.cfg
-        for i in range(cfg.num_layers):
-            p = _layer(params["dec_blocks"], i)
-            hn = L.rms_norm(h, p["ln1"], cfg.rmsnorm_eps)
+
+        def body(p, hh):
+            hn = L.rms_norm(hh, p["ln1"], cfg.rmsnorm_eps)
             a, _ = L.apply_attention(p["attn"], cfg, hn, positions, causal=True)
-            h = h + a
-            hn = L.rms_norm(h, p["ln_x"], cfg.rmsnorm_eps)
+            hh = hh + a
+            hn = L.rms_norm(hh, p["ln_x"], cfg.rmsnorm_eps)
             mem_k, mem_v = self._cross_kv(p, memory)
             a, _ = L.apply_attention(p["xattn"], cfg, hn, positions, kv=(mem_k, mem_v))
-            h = h + a
-            hn = L.rms_norm(h, p["ln2"], cfg.rmsnorm_eps)
-            h = h + L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
+            hh = hh + a
+            hn = L.rms_norm(hh, p["ln2"], cfg.rmsnorm_eps)
+            return hh + L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
+
+        for p in _unstack(params["dec_blocks"], cfg.num_layers):
+            h = self._remat(body, p, h)
         return h
 
     def _cross_kv(self, p, memory):
@@ -250,6 +341,16 @@ class Model:
         k = L.apply_dense(p["xattn"]["wk"], memory).reshape(B, Sm, K, Dh)
         v = L.apply_dense(p["xattn"]["wv"], memory).reshape(B, Sm, K, Dh)
         return k, v
+
+    def _encdec_loss(self, params, batch):
+        cfg = self.cfg
+        memory = self._encode(params, batch["embeds"])
+        h = self._embed(params, batch["tokens"])
+        B, Sq, _ = h.shape
+        positions = torch.arange(Sq, device=h.device).expand(B, Sq)
+        h = self._decode_stack(params, h, positions, memory)
+        h = L.rms_norm(h, params["final_norm"], cfg.rmsnorm_eps)
+        return _nll(self.logits(params, h), batch["labels"])
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, seq: int, dtype=None, *, device="cuda") -> dict:
@@ -342,8 +443,7 @@ class Model:
         cfg = self.cfg
         quant = cfg.kv_cache_dtype == "int8" and cfg.mla is None
         n_scan = cfg.num_layers - cfg.n_dense_layers
-        for i in range(n_scan):
-            p = _layer(params["blocks"], i)
+        for i, p in enumerate(_unstack(params["blocks"], n_scan)):
             hn = L.rms_norm(h, p["ln1"], cfg.rmsnorm_eps)
             if cfg.mla is not None:
                 a, _ = L.apply_mla_decode(p["attn"], cfg, hn, pos, {"latent": cache["latent"][i]})
@@ -361,9 +461,8 @@ class Model:
             h = h + out
         return h
 
-    def _mamba_decode(self, params, h, cache, i):
+    def _mamba_decode(self, p, h, cache, i):
         cfg = self.cfg
-        p = _layer(params["blocks"], i)
         hn = L.rms_norm(h, p["ln"], cfg.rmsnorm_eps)
         out, c2 = S.apply_mamba_decode(
             p["mamba"], cfg, hn, {"h": cache["h"][i], "conv": cache["conv"][i]})
@@ -374,9 +473,10 @@ class Model:
     def _ssm_decode_scan(self, params, h, pos, cache):
         cfg = self.cfg
         n_scan = cfg.num_layers - cfg.n_dense_layers
+        layers = _unstack(params["blocks"], n_scan)
         if cfg.family != "hybrid":
-            for i in range(n_scan):
-                h = self._mamba_decode(params, h, cache, i)
+            for i, p in enumerate(layers):
+                h = self._mamba_decode(p, h, cache, i)
             return h
         # hybrid: groups of attn_period mamba layers, each followed by one
         # shared-attn application with its own (per-application) KV slot.
@@ -385,8 +485,8 @@ class Model:
         names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
         sp = params["shared_attn"]
         for g in range(n_scan // period):
-            for j in range(period):
-                h = self._mamba_decode(params, h, cache, g * period + j)
+            for i in range(g * period, (g + 1) * period):
+                h = self._mamba_decode(layers[i], h, cache, i)
             lc = {n: cache["attn_" + n][g] for n in names}
             hn = L.rms_norm(h, sp["ln1"], cfg.rmsnorm_eps)
             a, _ = L.apply_attention_decode(sp["attn"], cfg, hn, pos, lc)
@@ -398,8 +498,7 @@ class Model:
     def _encdec_decode_step(self, params, tokens, pos, cache):
         cfg = self.cfg
         h = self._embed(params, tokens)
-        for i in range(cfg.num_layers):
-            p = _layer(params["dec_blocks"], i)
+        for i, p in enumerate(_unstack(params["dec_blocks"], cfg.num_layers)):
             hn = L.rms_norm(h, p["ln1"], cfg.rmsnorm_eps)
             a, _ = L.apply_attention_decode(
                 p["attn"], cfg, hn, pos, {"k": cache["self_k"][i], "v": cache["self_v"][i]})
@@ -432,8 +531,8 @@ class Model:
         if cfg.encdec:
             memory = self._encode(params, batch["embeds"])
             B, Sm, _ = memory.shape
-            kv = [self._cross_kv(_layer(params["dec_blocks"], i), memory)
-                  for i in range(cfg.num_layers)]
+            kv = [self._cross_kv(p, memory)
+                  for p in _unstack(params["dec_blocks"], cfg.num_layers)]
             shape = (cfg.num_layers, B, Sm, cfg.num_kv_heads, cfg.head_dim)
             cache = {
                 "self_k": torch.zeros(shape, dtype=dt, device=memory.device),
@@ -485,8 +584,8 @@ class Model:
             h, entry = block_with_cache(p, h, dense=True)
             prefix.append(entry)
         entries = []
-        for i in range(cfg.num_layers - cfg.n_dense_layers):
-            h, entry = block_with_cache(_layer(params["blocks"], i), h)
+        for p in _unstack(params["blocks"], cfg.num_layers - cfg.n_dense_layers):
+            h, entry = block_with_cache(p, h)
             entries.append(entry)
         stack = lambda es, j: torch.stack([e[j] for e in es])
         cache: dict[str, Any] = {}
@@ -510,8 +609,7 @@ class Model:
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
         hybrid = cfg.family == "hybrid" and cfg.attn_period
         hs, conv, attn_k, attn_v = [], [], [], []
-        for i in range(cfg.num_layers):
-            p = _layer(params["blocks"], i)
+        for i, p in enumerate(_unstack(params["blocks"], cfg.num_layers)):
             hn = L.rms_norm(h, p["ln"], cfg.rmsnorm_eps)
             out, (h_fin, conv_tail) = S.apply_mamba(p["mamba"], cfg, hn)
             h = h + out

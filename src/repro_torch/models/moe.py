@@ -79,7 +79,8 @@ def lp_route(
         z = (probs - lam[None, :]) / gamma
         x = project_simplex(z, mask, radius=float(top_k))
         grad = torch.sum(x, dim=0) - b  # A x - b  (per-expert load)
-        lam = torch.clamp_min(lam + eta * grad, 0.0)
+        # jnp.maximum's subgradient: half to each side at a tie
+        lam = torch.maximum(lam + eta * grad, torch.zeros_like(lam))
     z = (probs - lam[None, :]) / gamma
     return project_simplex(z, mask, radius=float(top_k))
 

@@ -1,0 +1,36 @@
+"""Training substrate: optimizer, single-device train step, fault-tolerant
+loop (port of `repro.training`).  The sharding rules (`param_pspecs`,
+`batch_pspecs`, `maybe_shard`) and the step over a mesh are ROADMAP Queue 1
+item 3."""
+from repro_torch.training.loop import TrainLoopConfig, train_loop
+from repro_torch.training.optimizer import (
+    AdamWConfig,
+    OptState,
+    adamw_init,
+    adamw_update,
+    adamw_update_,
+    global_norm,
+    lr_schedule,
+)
+from repro_torch.training.train_step import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+    value_and_grad,
+)
+
+__all__ = [
+    "AdamWConfig",
+    "OptState",
+    "adamw_init",
+    "adamw_update",
+    "adamw_update_",
+    "global_norm",
+    "lr_schedule",
+    "TrainState",
+    "make_train_step",
+    "init_train_state",
+    "value_and_grad",
+    "TrainLoopConfig",
+    "train_loop",
+]

@@ -13,7 +13,11 @@ their solo solves, and a served batch bitwise the direct projection of its
 snapshot on the card.  And the LM substrate (no kernel of the port): every
 reduced architecture in fp32 compute on the card against the CPU (prefill
 and two decode steps, rtol 1e-4 + atol 1e-5), and a bf16 MoE decode step
-(MLA, the fixed-order combine, both routers) bitwise the same in two runs.
+(MLA, the fixed-order combine, both routers) bitwise the same in two runs;
+its training path: every reduced architecture's loss and gradients in fp32
+on the card against the CPU (rtol 1e-4 + atol 1e-5), a few bf16 train
+steps with the in-place AdamW bitwise the functional one, and the loop
+resumed from a checkpoint bitwise the uninterrupted run.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -889,3 +893,71 @@ def test_lm_bf16_moe_decode_step_is_bitwise_repeatable(cuda, router):
     assert torch.equal(runs[0][0], runs[1][0])
     for k in cache:
         assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_train_loss_and_grads_on_card_match_cpu(cuda, arch):
+    """`value_and_grad(Model.loss)` of every reduced arch in fp32 compute on
+    the card against the CPU: loss and every gradient leaf at rtol 1e-4 +
+    atol 1e-5."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.training import value_and_grad
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    data = SyntheticLMData(cfg, batch=2, seq=16, seed=0)(0)
+    loss_c, grads_c = value_and_grad(model, params, batch_to_device(data, "cpu"))
+    loss_g, grads_g = value_and_grad(model, _to(params, cuda), batch_to_device(data, cuda))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-236b", "zamba2-2.7b"])
+def test_lm_train_in_place_adamw_is_bitwise_functional(cuda, arch):
+    """Three bf16 train steps of a reduced config: the donating step (the
+    in-place AdamW) and the functional step end on the same bits."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.optimizer import tree_leaves
+
+    model = Model(get_reduced_config(arch))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    data = SyntheticLMData(model.cfg, batch=4, seq=32, seed=0)
+    states = [init_train_state(model, device=cuda) for _ in range(2)]
+    steps = [make_train_step(model, opt)[0], make_train_step(model, opt, donate=False)[0]]
+    for k in range(3):
+        batch = batch_to_device(data(k), cuda)
+        (s0, m0), (s1, m1) = [step(st, batch) for step, st in zip(steps, states)]
+        states = [s0, s1]
+        assert torch.equal(m0["loss"], m1["loss"]) and torch.isfinite(m0["loss"])
+    for a, b in zip(tree_leaves([s0.params, s0.opt.m, s0.opt.v]),
+                    tree_leaves([s1.params, s1.opt.m, s1.opt.v])):
+        assert torch.equal(a, b)
+
+
+def test_lm_train_loop_resumes_bitwise_on_card(cuda, tmp_path):
+    """The loop on the card, reduced qwen3-8b in bf16: 8 steps uninterrupted
+    and again from the step-4 checkpoint alone, the same final bits."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.training import AdamWConfig, TrainLoopConfig, train_loop
+
+    cfg = get_reduced_config("qwen3-8b")
+    run = lambda d: train_loop(Model(cfg), SyntheticLMData(cfg, 8, 32), AdamWConfig(),
+                               TrainLoopConfig(total_steps=8, save_every=4), str(d),
+                               device=cuda)
+    run(tmp_path / "a")
+    shutil.copytree(tmp_path / "a" / "step_00000004", tmp_path / "b" / "step_00000004")
+    run(tmp_path / "b")
+    full, _ = CheckpointManager(str(tmp_path / "a")).restore_flat(8)
+    resumed, _ = CheckpointManager(str(tmp_path / "b")).restore_flat(8)
+    assert sorted(full) == sorted(resumed)
+    for k in full:
+        np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
