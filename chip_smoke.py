@@ -117,6 +117,23 @@ Phases, each printing one line before the last:
      lm_train_cli: `python -m repro_torch.launch.train --reduced` in
      process, 30 steps, and a run resumed from that run's step-20
      checkpoint alone, its final state bitwise the uninterrupted one's.
+ 11. the LM substrate over a mesh (no kernel of the port either), on a
+     ("data", "model") mesh of shape (1, 1) over a one-rank NCCL group:
+     lm_mesh_train_qwen3_8b: the train phase's qwen3-8b cut (8 layers,
+     batch 8 x 256) for 4 steps of the single-device step, then 4 of
+     `make_train_step` over the mesh with `default_profile` and again with
+     fsdp on, from the same seed and batches: losses and grad norms within
+     1e-6 relative (and whether bitwise), the median ms of steps 2-4
+     against the single-device step's, peak memory (the first step's and
+     steps 2-4's apart) and a profiled step's idle share; lm_mesh_serve_qwen3_8b: qwen3-8b at full depth in bf16
+     through `make_serve_fns`, a prefill of 4 prompts of 64 tokens and 16
+     greedy decode steps, the tokens equal to the single-device
+     `prefill`/`decode_step`'s, and ms per decode step against the single
+     device's; lm_mesh_dryrun: `python -m repro_torch.launch.dryrun --arch
+     qwen3-8b --shape train_4k --mesh single_pod` in a child process (the
+     fake process group at 256 ranks) and the cell of the mesh train phase
+     (`--mesh host --mesh-shape 1,1 --num-layers 8 --global-batch 8
+     --seq-len 256`), its per-card estimate against the measured peak.
 The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
 lanes, each lane bitwise its solo call, with one gamma and with a gamma per
 lane) and sweep_rows (kernel 2 over row
@@ -133,6 +150,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import socket
 import subprocess
@@ -3348,6 +3366,233 @@ def phase_lm_train_cli() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM substrate over a mesh: DTensor over a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+
+def lm_mesh(shape=(1, 1)):
+    """A ("data", "model") mesh over a new one-rank NCCL group on the card
+    (path 2 tore its group down; a process has one default group)."""
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch.mesh import make_mesh
+
+    launch_dist.setup("cuda:0", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                      world_size=1)
+    return make_mesh(shape, ("data", "model"), "cuda")
+
+
+def lm_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def phase_lm_mesh_train_qwen3_8b() -> dict:
+    """The train phase's qwen3-8b cut (full width, 8 of 36 layers, batch 8 x
+    256, remat, bf16 compute over fp32 masters): 4 steps of the
+    single-device `make_train_step`, then 4 of `make_train_step` over the
+    (1, 1) mesh with `default_profile`, then with fsdp forced on, each from
+    the seed-0 state and the same batches.  Every run's losses and grad
+    norms within 1e-6 relative of the single-device run's (and whether
+    bitwise); each step ends in a synchronize; the median host ms of steps
+    2-4, the peak memory of each run, one profiled mesh step's idle share;
+    no kernel of the port."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch.mesh import default_profile
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.train_step import init_sharded_state
+
+    start = lm_release()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=8)
+    model = Model(cfg)
+    B, S, steps = 8, 256, 4
+    data = SyntheticLMData(cfg, batch=B, seq=S, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    gen = lambda: torch.Generator(device=LM_DEVICE).manual_seed(0)
+
+    def run(step, state, tag, profile_it=False):
+        losses, norms, ms = [], [], []
+        for k in range(steps):
+            batch = batch_to_device(data(k), LM_DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            norms.append(norm)
+            if k == 0:  # the first step's peak apart from the steady state's
+                first_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"{tag}: losses {losses}, grad norms {norms}")
+        out = {"losses": losses, "grad_norms": norms, "step_host_ms": ms,
+               "median_step_ms_2_to_4": float(np.median(ms[1:])),
+               "peak_bytes_first_step": first_peak,
+               "peak_bytes": max(first_peak, torch.cuda.max_memory_allocated()),
+               "peak_bytes_steps_2_to_4": torch.cuda.max_memory_allocated()}
+        if profile_it:
+            batch = batch_to_device(data(steps), LM_DEVICE)
+            prof = profile_window(lambda: step(state, batch), tag, 1)
+            out["profile"] = {k: prof[k] for k in ("wall_ms_per_iter", "device_busy_ms_per_iter",
+                                                   "device_idle_share")}
+        return out
+
+    reset_counts()
+    step, _, _ = make_train_step(model, opt)
+    single = run(step, init_train_state(model, gen(), device=LM_DEVICE), "single")
+    del step
+    lm_release()
+    mesh = lm_mesh()
+    runs = {}
+    try:
+        for name in ("default", "fsdp"):
+            profile = default_profile(cfg, mesh)
+            if name == "fsdp":
+                profile = dataclasses.replace(profile, fsdp=True)
+            step, _, _ = make_train_step(model, opt, mesh, profile)
+            state = init_sharded_state(model, mesh, profile, gen())
+            r = run(step, state, f"lm_mesh_train_{name}", profile_it=name == "default")
+            r["profile_used"] = dataclasses.asdict(profile)
+            r["loss_rel_err"] = lm_rel(r["losses"], single["losses"])
+            r["grad_norm_rel_err"] = lm_rel(r["grad_norms"], single["grad_norms"])
+            r["bitwise"] = r["losses"] == single["losses"] and r["grad_norms"] == single["grad_norms"]
+            if not (r["loss_rel_err"] <= 1e-6 and r["grad_norm_rel_err"] <= 1e-6):
+                fail(f"lm_mesh_train_qwen3_8b {name}: against the single-device step {r}")
+            r["median_over_single"] = r["median_step_ms_2_to_4"] / single["median_step_ms_2_to_4"]
+            runs[name] = r
+            del step, state
+            lm_release()
+    finally:
+        launch_dist.teardown()
+    lm_no_kernel("lm_mesh_train_qwen3_8b")
+    out = {"phase": "lm_mesh_train_qwen3_8b", "mesh": [1, 1], "layers": cfg.num_layers,
+           "params": model.param_count(), "batch": B, "seq": S, "steps": steps,
+           "allocated_before_gb": start["allocated_gb"], "single_device": single, "mesh_runs": runs,
+           "tolerance": "1e-6 relative"}
+    emit(out)
+    return out
+
+
+def phase_lm_mesh_serve_qwen3_8b() -> dict:
+    """qwen3-8b at full width and depth (36 layers), fp32 masters from the
+    seed-0 generator cast once to bf16: a prefill of 4 prompts of 64 tokens
+    and 16 greedy decode steps, first through the single-device
+    `Model.prefill` / `decode_step`, then through `make_serve_fns` over the
+    (1, 1) mesh (params placed by the rules, the cache by `cache_pspecs`);
+    the tokens equal, the logits' largest difference, ms per decode step
+    (each step ending in a synchronize; median) of each; no kernel of the
+    port."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch.mesh import default_profile
+    from repro_torch.models import Model
+    from repro_torch.serving.lm_demo import make_serve_fns
+
+    start = lm_release()
+    cfg = get_config("qwen3-8b")
+    model = Model(cfg)
+    B, P, new = 4, 64, 16
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)).to(LM_DEVICE)
+    with torch.no_grad():
+        params = model._lowp(model.init(torch.Generator(device=LM_DEVICE).manual_seed(0)))
+        torch.cuda.synchronize()
+
+        def greedy(prefill, decode, full):
+            logits, cache = prefill(params, {"tokens": toks}, P + new)
+            out, lg, ms = [], [], []
+            for t in range(new):
+                nxt = torch.argmax(full(logits)[:, -1], -1).to(torch.int32)[:, None]
+                out.append(nxt[:, 0].tolist())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = decode(params, nxt, P + t, cache)
+                lg.append(full(logits)[:, -1].float())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return {"tokens": out, "logits": torch.stack(lg), "decode_ms": ms,
+                    "median_decode_ms": float(np.median(ms[1:]))}
+
+        reset_counts()
+        single = greedy(model.prefill, model.decode_step, lambda x: x)
+        lm_release()
+        mesh = lm_mesh()
+        try:
+            prefill, decode = make_serve_fns(model, mesh, default_profile(cfg, mesh))
+            sharded = greedy(prefill, decode, lambda x: x.full_tensor())
+        finally:
+            launch_dist.teardown()
+    lm_no_kernel("lm_mesh_serve_qwen3_8b")
+    if sharded["tokens"] != single["tokens"]:
+        fail(f"lm_mesh_serve_qwen3_8b: the mesh's tokens {sharded['tokens']} differ from the "
+             f"single device's {single['tokens']}")
+    err = float((sharded["logits"] - single["logits"]).abs().max())
+    out = {"phase": "lm_mesh_serve_qwen3_8b", "mesh": [1, 1], "layers": cfg.num_layers,
+           "batch": B, "prompt": P, "new_tokens": new, "allocated_before_gb": start["allocated_gb"],
+           "tokens_equal": True, "logits_max_abs_err": err,
+           "logits_bitwise": err == 0.0,
+           "single_median_decode_ms": single["median_decode_ms"],
+           "mesh_median_decode_ms": sharded["median_decode_ms"],
+           "mesh_over_single": sharded["median_decode_ms"] / single["median_decode_ms"],
+           "single_decode_ms": single["decode_ms"], "mesh_decode_ms": sharded["decode_ms"],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    del params
+    return out
+
+
+def phase_lm_mesh_dryrun(train: dict) -> dict:
+    """The dry run's arch cells in a child process (PyTorch's fake process
+    group; no card): qwen3-8b train_4k on the 16 x 16 mesh, then the mesh
+    train phase's own cell (8 layers, batch 8 x 256, mesh (1, 1)), whose
+    per-card memory estimate is set against that phase's measured peak."""
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    cells = {"qwen3-8b/train_4k/single_pod": ["--mesh", "single_pod"],
+             "qwen3-8b/train_4k/host1x1 (the mesh train phase)": [
+                 "--mesh", "host", "--mesh-shape", "1,1", "--num-layers", "8",
+                 "--global-batch", "8", "--seq-len", "256"]}
+    recs = {}
+    for name, extra in cells.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-8b", "--shape",
+             "train_4k", "--out", str(out_dir), *extra],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode != 0:
+            fail(f"lm_mesh_dryrun {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        tag = "qwen3-8b__train_4k__" + summary["cell"].split("/")[-1]
+        rec = json.loads((out_dir / f"{tag}.json").read_text())
+        if rec["status"] != "ok":
+            fail(f"lm_mesh_dryrun {name}: {rec}")
+        recs[name] = {"seconds": time.perf_counter() - t0,
+                      **{k: rec[k] for k in ("cell", "chips", "profile", "trace_s", "params",
+                                             "model_flops", "flops_global",
+                                             "flop_counter_flops_per_device",
+                                             "account_bytes_per_device", "collectives",
+                                             "coll_bytes_per_device", "memory")}}
+    est = recs["qwen3-8b/train_4k/host1x1 (the mesh train phase)"]["memory"]["estimate_bytes"]
+    runs = train["mesh_runs"]["default"]
+    out = {"phase": "lm_mesh_dryrun", "cells": recs, "host1x1_estimate_bytes": est,
+           "mesh_train_peak_bytes": runs["peak_bytes"],
+           "estimate_over_peak": est / runs["peak_bytes"],
+           "estimate_over_steady_peak": est / runs["peak_bytes_steps_2_to_4"]}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", type=int, default=1_000_000,
@@ -3480,6 +3725,10 @@ def main() -> int:
     # 10. the LM substrate's training path
     timed(phase_lm_train_qwen3_8b)
     timed(phase_lm_train_cli)
+    # 11. the LM substrate over a mesh
+    mesh_train = timed(phase_lm_mesh_train_qwen3_8b)
+    timed(phase_lm_mesh_serve_qwen3_8b)
+    timed(phase_lm_mesh_dryrun, mesh_train)
 
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,8 +8,7 @@ the reference's cells and `input_specs`, which builds meta-device tensors
 storage) for every model input of an (arch x shape) cell.  And the paper's
 own LP workload scales (`LP_INSTANCES`, the reference's Table 2/3 scales as
 generator specs), which the solver dry run (`repro_torch.launch.dryrun`)
-sizes on the analytic bucket layout (`instances.specs`).  The dry run's arch
-cells wait for the sharding rules and the mesh (`launch/mesh.py`).
+sizes on the analytic bucket layout (`instances.specs`).
 """
 from __future__ import annotations
 

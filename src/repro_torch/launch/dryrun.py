@@ -1,19 +1,40 @@
-"""Solver dry run: the bytes, FLOPs, collectives, memory and H100 roofline of
-a solver cell, from the shapes alone (port of `repro.launch.dryrun`, solver
-cells only).
+"""Dry run: the bytes, FLOPs, collectives and memory of an LM cell (arch x
+shape x mesh) or a solver cell, from the shapes alone (port of
+`repro.launch.dryrun`).
 
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single_pod
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 4 --out build/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --solver s100M-d10K --shards 4
     PYTHONPATH=src python -m repro_torch.launch.dryrun --sources 1000000 \
         --destinations 10000 --avg-degree 8 --shards 1 --fused-oracle
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
 
-The reference lowers and compiles each cell with XLA and reads the compiled
-artifact; PyTorch lowers nothing, so the port's record is analytic: the
-instance is one of meta-device tensors (`instances.specs`, no storage),
-and each figure is computed from its shapes with the reference's formulas
-and the port's own byte model (`kernels.ops.oracle_slab_slot_bytes`,
-`oracle_hist_partial_bytes`).  The keys that exist only with XLA
-(`lower_s`, `compile_s`, `hlo_*`) are left out.  A record holds:
+Arch cells.  The reference lowers and compiles each cell's step for its
+16 x 16 or 2 x 16 x 16 mesh.  The port runs the step itself, once, in a
+child process that joins PyTorch's fake process group at the mesh's world
+size (256 or 512; no card, no communication), on meta-device shards (no
+storage): `training.train_step.lower_train_step`, `serving.lm_demo.steps`'
+`lower_prefill` / `lower_decode_step`.  Each record has the reference's keys,
+with what only XLA has replaced by what the trace measures, named as such:
+`trace_s` (for `lower_s` / `compile_s`), `flop_counter_flops_per_device`
+(`torch.utils.flop_counter`'s formulas over this rank's local ops, for
+`hlo_flops_per_device`), `account_bytes_per_device` (the shards of params,
+optimizer state, batch and cache, for `hlo_bytes_per_device`), the
+collectives per device from the trace (`analysis.comm_stats`; loop-aware by
+construction, so `coll_bytes_per_device_static` is null), and `memory`: the
+state's shard bytes plus the trace's peak of its own live bytes (activations,
+grads, temporaries), against the H100's 80 GB (`fits`).  Skipped cells carry
+`configs.skip_reason`.  `--all` runs the reference's 80 cells (ten archs x
+four SHAPES x both meshes), one child each (`--jobs` at a time), and with
+`--with-solver` the solver cells too.  `--mesh host --mesh-shape 1,1` with
+`--num-layers`, `--global-batch`, `--seq-len` sizes a cell by hand.
+
+Solver cells.  The reference reads each cell's compiled artifact; the
+port's record is analytic: the instance is one of meta-device tensors
+(`instances.specs`, no storage), and each figure is computed from its
+shapes with the reference's formulas and the port's own byte model
+(`kernels.ops.oracle_slab_slot_bytes`, `oracle_hist_partial_bytes`).  The
+keys that exist only with XLA (`lower_s`, `compile_s`, `hlo_*`) are left
+out.  A solver record holds:
 
   * `model_flops`, `flops_global`, `bytes_global`: per stage of `--iters`
     iterations, the reference's formulas; the fused oracle's partial
@@ -29,17 +50,16 @@ and the port's own byte model (`kernels.ops.oracle_slab_slot_bytes`,
     whether they fit in the card's 80 GB;
   * `roofline`: the three terms on the H100 (`analysis.roofline.H100`).
 
-The LM substrate's cells (`--arch`) lower its train and serve steps over a
-mesh; they wait for the sharding rules (`training/sharding_rules.py`)
-and `launch/mesh.py`.  The models, configs, serving engine and the
-single-device training path are ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import subprocess
 import sys
+import time
 import traceback
 from typing import Optional
 
@@ -53,18 +73,196 @@ from repro_torch.instances.specs import solver_input_specs
 from repro_torch.kernels import dual_oracle as kdo
 from repro_torch.kernels import ops as kops
 
-__all__ = ["ALL_SHARDS", "H100_SMS", "build_parser", "main", "run_arch_cell",
-           "run_solver_cell", "solver_cell"]
+__all__ = ["ALL_SHARDS", "H100_SMS", "MESHES", "all_cells", "arch_cell", "build_parser",
+           "main", "run_arch_cell", "run_solver_cell", "solver_cell"]
 
 ALL_SHARDS = (1, 4, 8)  # the shard counts of `--all`
 H100_SMS = 132  # streaming multiprocessors of the H100 SXM5
 
 
-def run_arch_cell(*_args, **_kwargs) -> dict:
-    """The reference's LM cells (architecture x shape x mesh)."""
-    raise NotImplementedError(
-        "arch cells lower the LM substrate's train and serve steps over a mesh, which "
-        "wait for the sharding rules and launch/mesh.py; only solver cells (--solver) run")
+MESHES = {  # the reference's production meshes: shape, axis names
+    "single_pod": ((16, 16), ("data", "model")),
+    "multi_pod": ((2, 16, 16), ("pod", "data", "model")),
+}
+_SRC = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def all_cells() -> list[tuple[str, str, str]]:
+    """The reference's `_all_cells`: every arch x shape x production mesh."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+
+    return [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in ("single_pod", "multi_pod")]
+
+
+def _cell_config(arch: str, shape_name: str, *, moe_groups=0, kv_dtype="", reduced=False,
+                 num_layers=0, global_batch=0, seq_len=0):
+    from repro_torch.configs import SHAPES, get_config, get_reduced_config
+
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    if moe_groups and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=moe_groups))
+    if kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    shape = SHAPES[shape_name]
+    if global_batch or seq_len:
+        shape = dataclasses.replace(shape, global_batch=global_batch or shape.global_batch,
+                                    seq_len=seq_len or shape.seq_len)
+    return cfg, shape
+
+
+def _cell_name(arch, shape_name, mesh_name, mesh_shape) -> str:
+    if mesh_name == "host":
+        mesh_name = "host" + "x".join(str(n) for n in mesh_shape)
+    return f"{arch}/{shape_name}/{mesh_name}"
+
+
+def arch_cell(arch: str, shape_name: str, mesh_name: str, *, moe_groups: int = 0,
+              kv_dtype: str = "", reduced: bool = False, num_layers: int = 0,
+              global_batch: int = 0, seq_len: int = 0,
+              mesh_shape: Optional[tuple] = None) -> dict:
+    """The record of one arch cell, traced in this process over the running
+    process group (whose world size must be the mesh's size)."""
+    from repro_torch.analysis.flops_model import cell_cost
+    from repro_torch.configs import input_specs, skip_reason
+    from repro_torch.launch.mesh import default_profile, make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serving.lm_demo.steps import lower_decode_step, lower_prefill
+    from repro_torch.training.train_step import lower_train_step
+
+    cfg, shape = _cell_config(arch, shape_name, moe_groups=moe_groups, kv_dtype=kv_dtype,
+                              reduced=reduced, num_layers=num_layers,
+                              global_batch=global_batch, seq_len=seq_len)
+    dims, axes = _mesh_dims(mesh_name, mesh_shape)
+    name = _cell_name(arch, shape_name, mesh_name, dims)
+    reason = skip_reason(cfg, shape)
+    if reason:
+        return {"cell": name, "status": "skip", "reason": reason}
+    mesh = make_mesh(dims, axes, "cpu")
+    model = Model(cfg)
+    specs = input_specs(cfg, shape, model)
+    profile = default_profile(cfg, mesh)
+
+    t0 = time.time()
+    if shape.kind == "train":
+        acc = lower_train_step(cfg, specs, mesh, profile)
+    elif shape.kind == "prefill":
+        acc = lower_prefill(cfg, specs, mesh, profile)
+    else:
+        acc = lower_decode_step(cfg, specs, mesh, profile)
+    t_trace = time.time() - t0
+
+    cost = cell_cost(cfg, shape)
+    n = model.param_count()
+    n_active = model.param_count(active_only=True)
+    if shape.kind == "train":
+        model_flops = 6.0 * n_active * shape.global_batch * shape.seq_len
+    elif shape.kind == "prefill":
+        model_flops = 2.0 * n_active * shape.global_batch * shape.seq_len
+    else:  # decode: one token per sequence
+        model_flops = 2.0 * n_active * shape.global_batch
+    state = {k: acc.get(k, 0) for k in ("params_bytes", "opt_bytes", "batch_bytes",
+                                        "cache_bytes")}
+    account = sum(state.values())
+    estimate = account + acc["trace_live_peak_bytes"]
+    return {
+        "cell": name,
+        "arch": arch,
+        "shape": shape_name,
+        "kind": shape.kind,
+        "mesh": mesh_name,
+        "mesh_shape": list(dims),
+        "chips": int(mesh.size()),
+        "status": "ok",
+        "reduced": reduced,
+        "num_layers": cfg.num_layers,
+        "global_batch": shape.global_batch,
+        "seq_len": shape.seq_len,
+        "profile": dataclasses.asdict(profile),
+        "trace_s": round(t_trace, 2),
+        "params": n,
+        "active_params": n_active,
+        "model_flops": model_flops,
+        "flop_counter_flops_per_device": float(acc["flop_counter_flops_per_device"]),
+        "account_bytes_per_device": float(account),
+        # analytic totals (analysis/flops_model.py)
+        "flops_global": cost.flops,
+        "bytes_global": cost.bytes,
+        "layer_fwd_flops": cost.layer_fwd_flops,
+        "extra_flops": cost.extra_flops,
+        "collectives": acc["collectives"],
+        "coll_bytes_per_device": acc["coll_bytes_per_device"],
+        # the eager trace runs every layer: no body-once count exists
+        "coll_bytes_per_device_static": None,
+        "memory": {
+            **state,
+            "trace_live_peak_bytes": acc["trace_live_peak_bytes"],
+            "estimate_bytes": estimate,
+            "device_bytes": H100_HBM_BYTES,
+            "fits": estimate <= H100_HBM_BYTES,
+        },
+    }
+
+
+def _mesh_dims(mesh_name: str, mesh_shape: Optional[tuple]):
+    """(shape, axis names) of a production mesh, or of a host mesh of one or
+    two dims (("data",) or ("data", "model"))."""
+    if mesh_name == "host":
+        dims = tuple(mesh_shape or (1, 1))
+        if not 1 <= len(dims) <= 2:
+            raise ValueError(f"a host mesh has 1 or 2 dims, not {dims}")
+        return dims, ("data", "model")[:len(dims)]
+    return MESHES[mesh_name]
+
+
+def _child(kw: dict) -> int:
+    """The child process of one arch cell: join the fake process group at
+    the mesh's world size, trace the cell, print its record."""
+    import math
+
+    import torch.distributed as tdist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dims, _ = _mesh_dims(kw["mesh_name"], kw.get("mesh_shape"))
+    tdist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(dims))
+    try:
+        rec = arch_cell(kw.pop("arch"), kw.pop("shape_name"), kw.pop("mesh_name"), **kw)
+    finally:
+        tdist.destroy_process_group()
+    print(json.dumps(rec))
+    return 0
+
+
+def run_arch_cell(arch: str, shape_name: str, mesh_name: str, moe_groups: int = 0,
+                  kv_dtype: str = "", *, reduced: bool = False, num_layers: int = 0,
+                  global_batch: int = 0, seq_len: int = 0,
+                  mesh_shape: Optional[tuple] = None, timeout: Optional[float] = None) -> dict:
+    """The record of one arch cell: skipped here when `configs.skip_reason`
+    says so, else traced in a child process under the fake process group."""
+    from repro_torch.configs import skip_reason
+
+    cfg, shape = _cell_config(arch, shape_name, moe_groups=moe_groups, kv_dtype=kv_dtype,
+                              reduced=reduced, num_layers=num_layers,
+                              global_batch=global_batch, seq_len=seq_len)
+    reason = skip_reason(cfg, shape)
+    if reason:
+        dims, _ = _mesh_dims(mesh_name, mesh_shape)
+        return {"cell": _cell_name(arch, shape_name, mesh_name, dims), "status": "skip",
+                "reason": reason}
+    kw = dict(arch=arch, shape_name=shape_name, mesh_name=mesh_name, moe_groups=moe_groups,
+              kv_dtype=kv_dtype, reduced=reduced, num_layers=num_layers,
+              global_batch=global_batch, seq_len=seq_len,
+              mesh_shape=list(mesh_shape) if mesh_shape else None)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (_SRC, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell-child", json.dumps(kw)],
+        capture_output=True, text=True, env=env, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"arch cell {arch}/{shape_name}/{mesh_name} failed:\n"
+                           + proc.stderr[-4000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
@@ -277,8 +475,18 @@ def run_solver_cell(inst_name: str, shards: int, *, comm_mode="psum", compress="
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    ap.add_argument("--arch", help="LM cells: not ported (they wait for the sharding "
-                                   "rules and the mesh)")
+    ap.add_argument("--arch", help="an LM cell: architecture (configs.ARCH_IDS), with --shape")
+    ap.add_argument("--shape", help="an LM cell's shape (configs.SHAPES)")
+    ap.add_argument("--mesh", default="single_pod", choices=[*MESHES, "host"],
+                    help="an LM cell's mesh; host takes --mesh-shape")
+    ap.add_argument("--mesh-shape", default="1,1",
+                    help="with --mesh host: the (data, model) sizes, e.g. 1,1")
+    ap.add_argument("--moe-groups", type=int, default=0)
+    ap.add_argument("--kv-dtype", default="")
+    ap.add_argument("--reduced", action="store_true", help="the arch's REDUCED config")
+    ap.add_argument("--num-layers", type=int, default=0, help="cut the config's depth")
+    ap.add_argument("--global-batch", type=int, default=0, help="override the shape's batch")
+    ap.add_argument("--seq-len", type=int, default=0, help="override the shape's sequence")
     ap.add_argument("--solver", help=f"one of {sorted(LP_INSTANCES)}")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--sources", type=int, default=None,
@@ -302,8 +510,79 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tag", default="", help="suffix for the output json")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--all", action="store_true",
-                    help=f"every LP_INSTANCES cell at shards {ALL_SHARDS}")
+                    help="every arch x shape x mesh cell (the reference's 80)")
+    ap.add_argument("--with-solver", action="store_true",
+                    help=f"with --all: also every LP_INSTANCES cell at shards {ALL_SHARDS}")
+    ap.add_argument("--jobs", type=int, default=4, help="--all: cells traced at a time")
+    ap.add_argument("--cell-child", help=argparse.SUPPRESS)
     return ap
+
+
+def _arch_tag(arch, shape, mesh, extra="") -> str:
+    return f"{arch}__{shape}__{mesh}" + (f"__{extra}" if extra else "")
+
+
+def _summary(rec: dict) -> dict:
+    out = {k: rec[k] for k in ("cell", "status", "reason") if k in rec}
+    if rec.get("status") == "ok":
+        mem = rec["memory"]
+        out.update(memory_gb_per_device=mem["estimate_bytes"] / 1e9, fits=mem["fits"],
+                   coll_bytes_per_device=rec["coll_bytes_per_device"],
+                   trace_s=rec["trace_s"])
+    return out
+
+
+def _write(out_dir: str, tag: str, rec: dict) -> None:
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(rec, f, indent=2)
+
+
+def _drive_all(out_dir: str, jobs: int) -> int:
+    """Every arch cell, each traced in a child process (`jobs` at a time);
+    cells with a record in `out_dir` are kept.  Returns the failures."""
+    from repro_torch.configs import skip_reason
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (_SRC, env.get("PYTHONPATH")) if p)
+    queue, running, failures = [], [], 0
+    for arch, shape, mesh in all_cells():
+        tag = _arch_tag(arch, shape, mesh)
+        if os.path.exists(os.path.join(out_dir, tag + ".json")):
+            print("cached:", tag, flush=True)
+            continue
+        cfg, spec = _cell_config(arch, shape)
+        reason = skip_reason(cfg, spec)
+        if reason:
+            rec = {"cell": f"{arch}/{shape}/{mesh}", "status": "skip", "reason": reason}
+            _write(out_dir, tag, rec)
+            print(json.dumps(_summary(rec)), flush=True)
+            continue
+        queue.append((tag, dict(arch=arch, shape_name=shape, mesh_name=mesh)))
+    while queue or running:
+        while queue and len(running) < jobs:
+            tag, kw = queue.pop(0)
+            log = open(os.path.join(out_dir, tag + ".log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell-child",
+                 json.dumps(kw)], stdout=subprocess.PIPE, stderr=log, text=True, env=env)
+            running.append((proc, tag, log))
+        time.sleep(0.5)
+        still = []
+        for proc, tag, log in running:
+            if proc.poll() is None:
+                still.append((proc, tag, log))
+                continue
+            out = proc.stdout.read()
+            log.close()
+            if proc.returncode != 0:
+                failures += 1
+                print("FAIL", tag, flush=True)
+                continue
+            rec = json.loads(out.strip().splitlines()[-1])
+            _write(out_dir, tag, rec)
+            print(json.dumps(_summary(rec)), flush=True)
+        running = still
+    return failures
 
 
 def _tag(args, name: str, shards: int) -> str:
@@ -325,11 +604,31 @@ def _tag(args, name: str, shards: int) -> str:
 
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.arch:
-        run_arch_cell(args.arch)
+    if args.cell_child:
+        return _child(json.loads(args.cell_child))
+    os.makedirs(args.out, exist_ok=True)
+    failures = 0
     cells = []
     if args.all:
-        cells = [(name, None, s) for name in LP_INSTANCES for s in ALL_SHARDS]
+        failures += _drive_all(args.out, args.jobs)
+        if args.with_solver:
+            cells = [(name, None, s) for name in LP_INSTANCES for s in ALL_SHARDS]
+    elif args.arch:
+        if not args.shape:
+            build_parser().error("--arch needs --shape")
+        mesh_shape = tuple(int(n) for n in args.mesh_shape.split(","))
+        try:
+            rec = run_arch_cell(args.arch, args.shape, args.mesh, moe_groups=args.moe_groups,
+                                kv_dtype=args.kv_dtype, reduced=args.reduced,
+                                num_layers=args.num_layers, global_batch=args.global_batch,
+                                seq_len=args.seq_len, mesh_shape=mesh_shape)
+        except (RuntimeError, KeyError, ValueError):
+            traceback.print_exc()
+            return 1
+        mesh = args.mesh if args.mesh != "host" else "host" + "x".join(map(str, mesh_shape))
+        _write(args.out, _arch_tag(args.arch, args.shape, mesh, args.tag), rec)
+        print(json.dumps(_summary(rec)))
+        return 0
     elif args.sources is not None:
         spec = dict(num_sources=args.sources, num_destinations=args.destinations,
                     avg_degree=args.avg_degree, num_families=args.families)
@@ -337,9 +636,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     elif args.solver:
         cells = [(args.solver, None, args.shards)]
     else:
-        build_parser().error("give --solver NAME, --sources N or --all")
-    os.makedirs(args.out, exist_ok=True)
-    failures = 0
+        build_parser().error("give --arch NAME --shape S, --solver NAME, --sources N or --all")
     for name, spec, shards in cells:
         try:
             rec = run_solver_cell(

@@ -67,7 +67,17 @@ def _unstack(tree, n: int) -> list:
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token NLL in fp32 over the labels >= 0 (-100 = ignore)."""
+    """Mean next-token NLL in fp32 over the labels >= 0 (-100 = ignore).
+    DTensor logits sharded over the vocabulary (a sequence the tp axis does
+    not divide) are made whole on it first: the label gather has no
+    vocab-parallel rule that holds here."""
+    if hasattr(logits, "placements"):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = logits.ndim - 1
+        pl = [Replicate() if p == Shard(last) else p for p in logits.placements]
+        if pl != list(logits.placements):
+            logits = logits.redistribute(logits.device_mesh, pl)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     picked = torch.gather(lf, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
@@ -87,17 +97,47 @@ def _device(device) -> torch.device:
     return dev if dev.type == "meta" else resolve_device(dev)
 
 
+def _set_layer(stack: torch.Tensor, i: int, value: torch.Tensor) -> None:
+    """stack[i] = value, in place; a DTensor stack is written shard by
+    shard (value placed as the layer is) rather than through DTensor's
+    setitem."""
+    if hasattr(stack, "placements"):
+        dst = stack[i]
+        dst.to_local().copy_(value.redistribute(dst.device_mesh, dst.placements).to_local())
+    else:
+        stack[i] = value
+
+
 def _pad_seq(x: torch.Tensor, max_seq: Optional[int]) -> torch.Tensor:
     """Zero-pad dim 2 (the cache's sequence dim) up to max_seq."""
     if max_seq is None or max_seq - x.shape[2] <= 0:
         return x
     pad = [0, 0] * (x.ndim - 3) + [0, max_seq - x.shape[2]]
+    if hasattr(x, "placements"):  # on the local shards, the sequence whole
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        pl = [Replicate() if p == Shard(2) else p for p in x.placements]
+        local = torch.nn.functional.pad(x.redistribute(x.device_mesh, pl).to_local(), pad)
+        return DTensor.from_local(local, x.device_mesh, pl, run_check=False)
     return torch.nn.functional.pad(x, pad)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        # Megatron-style sequence-parallel activation placement: a
+        # `training.train_step.ActivationSharding` (DTensor placements of
+        # the [B, S, d] hiddens on a mesh), set by the mesh train step and
+        # `lower_prefill`; None on single-device paths, where `_c` is the
+        # identity.  Applied to the residual stream between blocks, so each
+        # layer's saved carry is sharded over the tp axis as well as the
+        # batch.
+        self.act_sharding = None
+
+    def _c(self, h):
+        if self.act_sharding is not None and h.ndim == 3 and h.shape[1] > 1:
+            return self.act_sharding(h)
+        return h
 
     def _lowp(self, params):
         """Cast >=2D fp32 weights to the compute dtype.  Stacked 1D params
@@ -226,7 +266,7 @@ class Model:
         hn = L.rms_norm(h, p["ln2"], cfg.rmsnorm_eps)
         if cfg.family == "moe":
             B, Sq, d = hn.shape
-            out = M.apply_moe(p["moe"], cfg, hn.reshape(B * Sq, d)).reshape(B, Sq, d)
+            out = L.reshape(M.apply_moe(p["moe"], cfg, L.reshape(hn, B * Sq, d)), B, Sq, d)
         else:
             out = L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
         return h + out
@@ -256,6 +296,8 @@ class Model:
         return h + L.apply_mlp(p["mlp"], hn, cfg.mlp_type), kv
 
     def _embed(self, params, tokens):
+        if hasattr(params["embed"], "placements"):
+            return L.embed_on_shards(params["embed"], tokens).to(_dtype(self.cfg))
         return params["embed"][tokens.long()].to(_dtype(self.cfg))
 
     # ------------------------------------------------------------- forward
@@ -269,7 +311,7 @@ class Model:
             hh = self._block_fwd(p, hh, positions)
             if cfg.family == "hybrid" and cfg.attn_period and (idx + 1) % cfg.attn_period == 0:
                 hh, _ = self._shared_attn_fwd(shared, hh, positions)
-            return hh
+            return self._c(hh)
 
         n_scan = cfg.num_layers - cfg.n_dense_layers
         for i, p in enumerate(_unstack(params["blocks"], n_scan)):
@@ -283,8 +325,9 @@ class Model:
         if extra_embeds is not None:  # vlm/audio stub: precomputed embeddings
             h = torch.cat([extra_embeds.to(_dtype(cfg)), h], dim=1)
         B, Sq, _ = h.shape
+        h = self._c(h)
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
-        fwd = lambda pp, hh: self._dense_block_fwd(pp, hh, positions)[0]
+        fwd = lambda pp, hh: self._c(self._dense_block_fwd(pp, hh, positions)[0])
         for p in params.get("prefix", []):
             h = self._remat(fwd, p, h)
         h = self._stack(params, h, positions)
@@ -293,7 +336,7 @@ class Model:
     def logits(self, params, h):
         cfg = self.cfg
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return h @ w.to(h.dtype)
+        return L.dense_mm(h, w.to(h.dtype))
 
     def loss(self, params, batch: dict) -> torch.Tensor:
         """batch: tokens [B,S], labels [B,S] (-100 = ignore), optional
@@ -303,7 +346,8 @@ class Model:
         if self.cfg.encdec:
             return self._encdec_loss(params, batch)
         h = self.hidden_states(params, batch["tokens"], batch.get("embeds"))
-        return _nll(self.logits(params, h), batch["labels"])
+        logits = self._c(self.logits(params, h))  # [B, S/tp, V]: seq-sharded
+        return _nll(logits, batch["labels"])
 
     # --------------------------------------------------------- encoder-decoder
     def _encode(self, params, embeds):
@@ -311,7 +355,7 @@ class Model:
         h = embeds.to(_dtype(cfg))
         B, Sq, _ = h.shape
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
-        body = lambda p, hh: self._dense_block_fwd(p, hh, positions, causal=False)[0]
+        body = lambda p, hh: self._c(self._dense_block_fwd(p, hh, positions, causal=False)[0])
         for p in _unstack(params["enc_blocks"], cfg.enc_layers):
             h = self._remat(body, p, h)
         return h
@@ -328,7 +372,7 @@ class Model:
             a, _ = L.apply_attention(p["xattn"], cfg, hn, positions, kv=(mem_k, mem_v))
             hh = hh + a
             hn = L.rms_norm(hh, p["ln2"], cfg.rmsnorm_eps)
-            return hh + L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
+            return self._c(hh + L.apply_mlp(p["mlp"], hn, cfg.mlp_type))
 
         for p in _unstack(params["dec_blocks"], cfg.num_layers):
             h = self._remat(body, p, h)
@@ -338,8 +382,8 @@ class Model:
         cfg = self.cfg
         B, Sm, _ = memory.shape
         K, Dh = cfg.num_kv_heads, cfg.head_dim
-        k = L.apply_dense(p["xattn"]["wk"], memory).reshape(B, Sm, K, Dh)
-        v = L.apply_dense(p["xattn"]["wv"], memory).reshape(B, Sm, K, Dh)
+        k = L.reshape(L.apply_dense(p["xattn"]["wk"], memory), B, Sm, K, Dh)
+        v = L.reshape(L.apply_dense(p["xattn"]["wv"], memory), B, Sm, K, Dh)
         return k, v
 
     def _encdec_loss(self, params, batch):
@@ -350,7 +394,7 @@ class Model:
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
         h = self._decode_stack(params, h, positions, memory)
         h = L.rms_norm(h, params["final_norm"], cfg.rmsnorm_eps)
-        return _nll(self.logits(params, h), batch["labels"])
+        return _nll(self._c(self.logits(params, h)), batch["labels"])
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, seq: int, dtype=None, *, device="cuda") -> dict:
@@ -455,7 +499,7 @@ class Model:
             hn = L.rms_norm(h, p["ln2"], cfg.rmsnorm_eps)
             if cfg.family == "moe":
                 B = hn.shape[0]
-                out = M.apply_moe(p["moe"], cfg, hn.reshape(B, -1)).reshape(B, 1, -1)
+                out = L.reshape(M.apply_moe(p["moe"], cfg, L.reshape(hn, B, -1)), B, 1, -1)
             else:
                 out = L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
             h = h + out
@@ -466,8 +510,8 @@ class Model:
         hn = L.rms_norm(h, p["ln"], cfg.rmsnorm_eps)
         out, c2 = S.apply_mamba_decode(
             p["mamba"], cfg, hn, {"h": cache["h"][i], "conv": cache["conv"][i]})
-        cache["h"][i] = c2["h"]
-        cache["conv"][i] = c2["conv"]
+        _set_layer(cache["h"], i, c2["h"])
+        _set_layer(cache["conv"], i, c2["conv"])
         return h + out
 
     def _ssm_decode_scan(self, params, h, pos, cache):
@@ -505,12 +549,11 @@ class Model:
             h = h + a
             hn = L.rms_norm(h, p["ln_x"], cfg.rmsnorm_eps)
             B = hn.shape[0]
-            q = L.apply_dense(p["xattn"]["wq"], hn).reshape(
-                B, 1, cfg.num_heads, cfg.head_dim
-            )
+            q = L.reshape(L.apply_dense(p["xattn"]["wq"], hn),
+                          B, 1, cfg.num_heads, cfg.head_dim)
             ck, cv = cache["cross_k"][i], cache["cross_v"][i]
             a = L.decode_attention(q, ck, cv, ck.shape[1] - 1)
-            a = L.apply_dense(p["xattn"]["wo"], a.reshape(B, 1, -1))
+            a = L.apply_dense(p["xattn"]["wo"], L.reshape(a, B, 1, -1))
             h = h + a
             hn = L.rms_norm(h, p["ln2"], cfg.rmsnorm_eps)
             h = h + L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
@@ -574,10 +617,10 @@ class Model:
             hh = hh + a
             hn = L.rms_norm(hh, p["ln2"], cfg.rmsnorm_eps)
             if cfg.family == "moe" and not dense:
-                out = M.apply_moe(p["moe"], cfg, hn.reshape(B * Sq, -1)).reshape(B, Sq, -1)
+                out = L.reshape(M.apply_moe(p["moe"], cfg, L.reshape(hn, B * Sq, -1)), B, Sq, -1)
             else:
                 out = L.apply_mlp(p["mlp"], hn, cfg.mlp_type)
-            return hh + out, entry
+            return self._c(hh + out), entry
 
         prefix = []
         for p in params.get("prefix", []):
@@ -621,6 +664,7 @@ class Model:
                 h, (k, v) = self._shared_attn_fwd(params["shared_attn"], h, positions)
                 attn_k.append(k.to(dt))
                 attn_v.append(v.to(dt))
+            h = self._c(h)
         cache: dict[str, Any] = {"h": torch.stack(hs), "conv": torch.stack(conv)}
         if cfg.family == "hybrid":
             cache["attn_k"], cache["attn_v"] = torch.stack(attn_k), torch.stack(attn_v)

@@ -22,6 +22,13 @@ segment starts are `side="left"`, and the capacity rounds half to even
 order the reference's CPU scatter-add does (sorted by expert, starting from
 zero), one elementwise add per slot: no atomics, so the card's result is the
 same in every run.
+
+Over a mesh (x a DTensor), dispatch and combine have no DTensor sharding
+rule (argsort, searchsorted, index_put, the combine's gathers): the tokens
+and the router's weight are made whole on every rank (`Replicate`) and
+routed there as plain tensors, the same on every rank; the expert FFNs run
+as DTensor einsums over the experts' shards, and the shared experts over
+the tokens' own placement.
 """
 from __future__ import annotations
 
@@ -92,13 +99,36 @@ def apply_moe(p, cfg, x2d: torch.Tensor) -> torch.Tensor:
     dispatch (argsort, rank, scatter) runs per group (the reference vmaps
     it); groups=0 is the single global dispatch.
     """
+    if hasattr(x2d, "placements"):
+        return _apply_moe_on_mesh(p, cfg, x2d)
+    return _apply_moe(p, cfg, x2d)
+
+
+def _apply_moe(p, cfg, x2d, mesh=None, shared=True):
     m = cfg.moe
     T, d = x2d.shape
     G = m.groups
     if G > 1 and T % G == 0 and T // G >= m.top_k:
         xg = x2d.reshape(G, T // G, d)
-        return torch.stack([_moe_one_group(p, cfg, xs) for xs in xg]).reshape(T, d)
-    return _moe_one_group(p, cfg, x2d)
+        return torch.stack([_moe_one_group(p, cfg, xs, mesh, shared)
+                            for xs in xg]).reshape(T, d)
+    return _moe_one_group(p, cfg, x2d, mesh, shared)
+
+
+def _apply_moe_on_mesh(p, cfg, x2d):
+    """The named place where MoE routing leaves DTensor: tokens and router
+    weight replicated, routing local (see the module's docstring)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x2d.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    x = x2d.redistribute(mesh, rep).to_local()
+    local = dict(p, router={k: v.full_tensor() for k, v in p["router"].items()})
+    out = DTensor.from_local(_apply_moe(local, cfg, x, mesh, shared=False), mesh, rep,
+                             run_check=False)
+    if cfg.moe.num_shared > 0:
+        out = out + apply_mlp(p["shared"], x2d)
+    return out
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -107,7 +137,7 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], ids[:, :k]
 
 
-def _moe_one_group(p, cfg, x2d: torch.Tensor) -> torch.Tensor:
+def _moe_one_group(p, cfg, x2d: torch.Tensor, mesh=None, shared=True) -> torch.Tensor:
     m = cfg.moe
     T, d = x2d.shape
     E, k = m.num_experts, m.top_k
@@ -137,12 +167,7 @@ def _moe_one_group(p, cfg, x2d: torch.Tensor) -> torch.Tensor:
     h = buf[: E * C].reshape(E, C, d)
 
     # ---- batched expert FFN -------------------------------------------------
-    def ff(w):
-        return w.to(x2d.dtype)
-
-    g = torch.einsum("ecd,edf->ecf", h, ff(p["w_gate"]))
-    u = torch.einsum("ecd,edf->ecf", h, ff(p["w_up"]))
-    y = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, ff(p["w_down"]))
+    y = _experts(p, h, mesh)
 
     # ---- combine -------------------------------------------------------------
     y_flat = torch.cat([y.reshape(E * C, d), torch.zeros((1, d), dtype=y.dtype, device=dev)])
@@ -157,6 +182,23 @@ def _moe_one_group(p, cfg, x2d: torch.Tensor) -> torch.Tensor:
     for j in range(k):
         out = out + contrib[pos[:, j]]
 
-    if m.num_shared > 0:
+    if shared and m.num_shared > 0:
         out = out + apply_mlp(p["shared"], x2d)
     return out
+
+
+def _experts(p, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The batched expert FFN over the dispatch buffer h [E, C, d]; over a
+    mesh, DTensor einsums against the experts' shards, the result made
+    whole on every rank."""
+    def ff(w):
+        return w.to(h.dtype)
+
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        h = DTensor.from_local(h, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    g = torch.einsum("ecd,edf->ecf", h, ff(p["w_gate"]))
+    u = torch.einsum("ecd,edf->ecf", h, ff(p["w_up"]))
+    y = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, ff(p["w_down"]))
+    return y.full_tensor() if mesh is not None else y

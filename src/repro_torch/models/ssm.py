@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamInit, apply_dense, init_dense, rms_norm
+from repro_torch.models.layers import ParamInit, apply_dense, init_dense, reshape, rms_norm
 
 __all__ = [
     "init_mamba",
@@ -77,7 +77,15 @@ def _split_proj(cfg, proj):
 
 
 def _causal_conv(xbc, w, b):
-    """Depthwise causal conv over time. xbc: [B,S,C], w: [W,C]."""
+    """Depthwise causal conv over time. xbc: [B,S,C], w: [W,C].  A DTensor
+    xbc runs per batch shard on the local tensors, the weights whole (a
+    DTensor pad loses its mesh on some PyTorch versions)."""
+    if hasattr(xbc, "placements"):
+        from repro_torch.models.layers import batch_shards, on_local_shards, whole_local
+
+        keep = batch_shards(xbc)
+        wl, bl = whole_local(w, list(keep)), whole_local(b, list(keep))
+        return on_local_shards(lambda t: _causal_conv(t, wl, bl), (xbc,), (keep,), keep)
     W = w.shape[0]
     pad = F.pad(xbc, (0, 0, W - 1, 0))
     out = sum(
@@ -104,7 +112,16 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # [b,h,p,n] initial state
 ):
-    """Returns (y [b,s,h,p], h_final [b,h,p,n])."""
+    """Returns (y [b,s,h,p], h_final [b,h,p,n]).  DTensor inputs run per
+    batch shard on the local tensors (`layers.on_local_shards`)."""
+    if hasattr(xdt, "placements"):
+        from repro_torch.models.layers import batch_shards, on_local_shards
+
+        keep = batch_shards(xdt)
+        ins = (xdt, a, Bm, Cm) + ((h0,) if h0 is not None else ())
+        return on_local_shards(
+            lambda *t: ssd_chunked(t[0], t[1], t[2], t[3], chunk, t[4] if len(t) > 4 else None),
+            ins, (keep,) * len(ins), (keep, keep))
     b, S, H, Pd = xdt.shape
     g, n = Bm.shape[2], Bm.shape[3]
     hg = H // g
@@ -157,16 +174,16 @@ def apply_mamba(p, cfg, x, h0=None):
     conv_tail = xbc[:, -(s.conv_width - 1):, :]
     xbc = _causal_conv(xbc, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
     gn = s.n_groups * s.state_dim
-    xin = xbc[..., :d_in].reshape(B_, S, H, s.head_dim)
-    Bm = xbc[..., d_in : d_in + gn].reshape(B_, S, s.n_groups, s.state_dim)
-    Cm = xbc[..., d_in + gn :].reshape(B_, S, s.n_groups, s.state_dim)
+    xin = reshape(xbc[..., :d_in], B_, S, H, s.head_dim)
+    Bm = reshape(xbc[..., d_in : d_in + gn], B_, S, s.n_groups, s.state_dim)
+    Cm = reshape(xbc[..., d_in + gn :], B_, S, s.n_groups, s.state_dim)
     dt = _softplus(dt.to(F32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])  # [H]
     a = dt * A[None, None, :]  # [B,S,H]
     xdt = xin * dt[..., None].to(xin.dtype)
     y, h_fin = ssd_chunked(xdt, a, Bm, Cm, cfg.ssm.chunk, h0=h0)
     y = y + xin * p["D"].to(xin.dtype)[None, None, :, None]
-    y = y.reshape(B_, S, d_in)
+    y = reshape(y, B_, S, d_in)
     y = rms_norm(y, p["norm"], cfg.rmsnorm_eps) * F.silu(z)
     out = apply_dense(p["out_proj"], y)
     return out, (h_fin, conv_tail)
@@ -182,35 +199,52 @@ def init_mamba_cache(cfg, batch: int, dtype=F32, device="cpu") -> dict:
 
 def apply_mamba_decode(p, cfg, x, cache):
     """One-token recurrent step. x: [B,1,d_model] -> ([B,1,d_model], cache).
-    The returned cache holds new tensors; the one given is not changed."""
+    The returned cache holds new tensors; the one given is not changed.
+    Over a mesh (x a DTensor) the conv and state update run per batch shard
+    on the local tensors (`layers.on_local_shards`): their einsums fold the
+    sharded batch and head dims together, which DTensor's view rule does
+    not carry on every PyTorch version."""
     s, d_in, H, conv_dim = _dims(cfg)
     B_ = x.shape[0]
     proj = apply_dense(p["in_proj"], x)  # [B,1,*]
     z, xbc, dt = _split_proj(cfg, proj)
-    # conv over (cached W-1 inputs | new input)
-    win = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
-    w = p["conv_w"].to(x.dtype)
-    conv_out = torch.einsum("bwc,wc->bc", win, w) + p["conv_b"].to(x.dtype)
+    args = (xbc, dt, cache["conv"], cache["h"], p["conv_w"].to(x.dtype),
+            p["conv_b"].to(x.dtype), p["dt_bias"], p["A_log"], p["D"])
+    if hasattr(x, "placements"):
+        from repro_torch.models.layers import batch_shards, on_local_shards, whole_local
+
+        keep = batch_shards(xbc)
+        weights = tuple(whole_local(w, list(keep)) for w in args[4:])
+        y, h_new, conv_new = on_local_shards(
+            lambda *t: _decode_core(cfg, *t, *weights), args[:4], (keep,) * 4, (keep,) * 3)
+    else:
+        y, h_new, conv_new = _decode_core(cfg, *args)
+    y = reshape(y, B_, 1, d_in)
+    y = rms_norm(y, p["norm"], cfg.rmsnorm_eps) * F.silu(z)
+    out = apply_dense(p["out_proj"], y)
+    return out, {"h": h_new, "conv": conv_new}
+
+
+def _decode_core(cfg, xbc, dt, conv, h, w, b, dt_bias, A_log, D):
+    """The conv over (cached W-1 inputs | new input) and the state update:
+    (y [B,H,P] with its D term, the new state, the new conv cache)."""
+    s, d_in, H, conv_dim = _dims(cfg)
+    B_ = xbc.shape[0]
+    win = torch.cat([conv.to(xbc.dtype), xbc], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", win, w) + b
     xbc1 = F.silu(conv_out)[:, None, :]  # [B,1,C]
     gn = s.n_groups * s.state_dim
     xin = xbc1[..., :d_in].reshape(B_, H, s.head_dim)
     Bm = xbc1[..., d_in : d_in + gn].reshape(B_, s.n_groups, s.state_dim)
     Cm = xbc1[..., d_in + gn :].reshape(B_, s.n_groups, s.state_dim)
-    dt1 = _softplus(dt[:, 0].to(F32) + p["dt_bias"][None, :])  # [B,H]
-    A = -torch.exp(p["A_log"])
+    dt1 = _softplus(dt[:, 0].to(F32) + dt_bias[None, :])  # [B,H]
+    A = -torch.exp(A_log)
     decay = torch.exp(dt1 * A[None, :])  # [B,H]
     hg = H // s.n_groups
     b_h = torch.repeat_interleave(Bm, hg, dim=1)  # [B,H,n]
     c_h = torch.repeat_interleave(Cm, hg, dim=1)
     u = torch.einsum("bhp,bhn,bh->bhpn", xin.to(F32), b_h.to(F32), dt1)
-    h_new = cache["h"] * decay[:, :, None, None] + u
-    y = torch.einsum("bhpn,bhn->bhp", h_new, c_h.to(F32)).to(x.dtype)
-    y = y + xin * p["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(B_, 1, d_in)
-    y = rms_norm(y, p["norm"], cfg.rmsnorm_eps) * F.silu(z)
-    out = apply_dense(p["out_proj"], y)
-    new_cache = {
-        "h": h_new,
-        "conv": win[:, 1:, :].to(cache["conv"].dtype),
-    }
-    return out, new_cache
+    h_new = h * decay[:, :, None, None] + u
+    y = torch.einsum("bhpn,bhn->bhp", h_new, c_h.to(F32)).to(xbc.dtype)
+    y = y + xin * D.to(xbc.dtype)[None, :, None]
+    return y, h_new, win[:, 1:, :].to(conv.dtype)

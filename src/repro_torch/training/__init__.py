@@ -1,7 +1,5 @@
-"""Training substrate: optimizer, single-device train step, fault-tolerant
-loop (port of `repro.training`).  The sharding rules (`param_pspecs`,
-`batch_pspecs`, `maybe_shard`) and the step over a mesh are ROADMAP Queue 1
-item 3."""
+"""Training substrate: optimizer, sharding rules, train step (single-device
+and over a mesh), fault-tolerant loop (port of `repro.training`)."""
 from repro_torch.training.loop import TrainLoopConfig, train_loop
 from repro_torch.training.optimizer import (
     AdamWConfig,
@@ -12,6 +10,7 @@ from repro_torch.training.optimizer import (
     global_norm,
     lr_schedule,
 )
+from repro_torch.training.sharding_rules import batch_pspecs, maybe_shard, param_pspecs
 from repro_torch.training.train_step import (
     TrainState,
     init_train_state,
@@ -27,6 +26,9 @@ __all__ = [
     "adamw_update_",
     "global_norm",
     "lr_schedule",
+    "param_pspecs",
+    "batch_pspecs",
+    "maybe_shard",
     "TrainState",
     "make_train_step",
     "init_train_state",

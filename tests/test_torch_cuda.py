@@ -17,7 +17,9 @@ and two decode steps, rtol 1e-4 + atol 1e-5), and a bf16 MoE decode step
 its training path: every reduced architecture's loss and gradients in fp32
 on the card against the CPU (rtol 1e-4 + atol 1e-5), a few bf16 train
 steps with the in-place AdamW bitwise the functional one, and the loop
-resumed from a checkpoint bitwise the uninterrupted run.
+resumed from a checkpoint bitwise the uninterrupted run; over a mesh of
+shape (1, 1) (DTensor over a one-rank NCCL group): the sharded train step
+of three reduced archs and `make_serve_fns` bitwise the single-device ones.
 
 Every test is marked `cuda` and skips (in a fixture, at run time) when
 `torch.cuda.is_available()` is False.  Run on a machine with a card:
@@ -961,3 +963,85 @@ def test_lm_train_loop_resumes_bitwise_on_card(cuda, tmp_path):
     assert sorted(full) == sorted(resumed)
     for k in full:
         np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A ("data", "model") mesh of shape (1, 1) over a one-rank NCCL group."""
+    import socket
+
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    launch_dist.setup("cuda:0", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        launch_dist.teardown()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-236b", "mamba2-1.3b"])
+def test_lm_mesh_train_step_on_card_is_the_single_device_step(card_mesh, arch):
+    """4 bf16 steps of the reduced arch over the (1, 1) mesh (DTensor over
+    NCCL): every loss and grad norm bitwise the single-device step's.  The
+    MoE layer's routing leaves DTensor (`models.moe._apply_moe_on_mesh`),
+    so the bf16 grad of its input sums its three uses (router, dispatch,
+    shared experts) in another order: held at 1e-3 relative there."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import default_profile
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.train_step import init_sharded_state
+
+    cfg = get_reduced_config(arch)
+    model, opt = Model(cfg), AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    data = SyntheticLMData(cfg, batch=4, seq=32, seed=0)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    runs = []
+    for mesh in (None, card_mesh):
+        if mesh is None:
+            state, (step, _, _) = (init_train_state(model, gen(), device="cuda"),
+                                   make_train_step(model, opt))
+        else:
+            profile = default_profile(cfg, mesh)
+            state = init_sharded_state(model, mesh, profile, gen())
+            step, _, _ = make_train_step(model, opt, mesh, profile)
+        out = []
+        for k in range(4):
+            state, m = step(state, batch_to_device(data(k), "cuda"))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(out)
+    if cfg.moe is None:
+        assert runs[0] == runs[1]
+    else:
+        np.testing.assert_allclose(runs[1], runs[0], rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-1.3b", "zamba2-2.7b"])
+def test_lm_mesh_serve_fns_on_card_give_the_single_device_tokens(card_mesh, arch):
+    """The reduced arch in bf16: a prefill of 4 prompts and 8 greedy decode
+    steps through `make_serve_fns` over the (1, 1) mesh, the tokens and
+    logits bitwise `Model.prefill` / `decode_step`'s."""
+    from repro_torch.launch.mesh import default_profile
+    from repro_torch.serving.lm_demo import make_serve_fns
+
+    cfg = get_reduced_config(arch)
+    model = Model(cfg)
+    params = model._lowp(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32).cuda()
+    runs = []
+    for fns, full in (((model.prefill, model.decode_step), lambda x: x),
+                      (make_serve_fns(model, card_mesh, default_profile(cfg, card_mesh)),
+                       lambda x: x.full_tensor())):
+        logits, cache = fns[0](params, {"tokens": toks}, 24)
+        out = []
+        for t in range(8):
+            nxt = torch.argmax(full(logits)[:, -1], -1).to(torch.int32)[:, None]
+            logits, cache = fns[1](params, nxt, 16 + t, cache)
+            out.append(full(logits).float().cpu())
+        runs.append(torch.stack(out))
+    assert torch.equal(runs[0], runs[1])

@@ -13,6 +13,10 @@
   * `roofline_from_stats` equal to the reference's given the same `HW`.
   * The CLI on the CPU for one `LP_INSTANCES` cell at shards 1 and 4, and
     its refusals.
+  * Arch cells of the reduced configs, each traced in a child process under
+    PyTorch's fake process group at the production mesh's world size:
+    `ok` with the reference's record keys (what only XLA has replaced by the
+    trace's own, named as such), or the reference's skip reason.
 The reference's `repro.launch.dryrun` is not imported: it sets XLA_FLAGS
 for 512 host devices when imported.
 """
@@ -150,7 +154,7 @@ def test_dryrun_cli_on_the_cpu(tmp_path, capsys):
 
 
 def test_dryrun_refusals():
-    with pytest.raises(NotImplementedError, match="LM substrate"):
+    with pytest.raises(SystemExit):  # an arch cell needs its shape
         dryrun.main(["--arch", "qwen3-8b"])
     with pytest.raises(ValueError, match="simplex"):
         dryrun.run_solver_cell(CELL, 1, fused_oracle=True, formulation="capacity-cap")
@@ -159,3 +163,37 @@ def test_dryrun_refusals():
     with pytest.raises(ValueError, match="only formulation matching"):
         dryrun.run_solver_cell(CELL, 1, engine="pdhg", formulation="fairness-floor")
     assert dryrun.run_solver_cell(CELL, 4, engine="auto")["engine"] == "agd"
+
+
+def test_arch_cell_train_on_the_fake_single_pod(tmp_path, capsys):
+    assert dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--mesh", "single_pod",
+                        "--reduced", "--seq-len", "256", "--global-batch", "32",
+                        "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "qwen3-8b__train_4k__single_pod.json").read_text())
+    assert rec["status"] == "ok" and rec["chips"] == 256 and rec["mesh_shape"] == [16, 16]
+    assert {"lower_s", "compile_s", "hlo_flops_per_device"}.isdisjoint(rec)
+    for key in ("params", "active_params", "model_flops", "flops_global", "bytes_global",
+                "layer_fwd_flops", "extra_flops", "collectives", "coll_bytes_per_device",
+                "flop_counter_flops_per_device", "account_bytes_per_device", "trace_s"):
+        assert key in rec, key
+    assert rec["coll_bytes_per_device_static"] is None
+    assert rec["flop_counter_flops_per_device"] > 0 and rec["coll_bytes_per_device"] > 0
+    assert set(rec["collectives"]["counts"]) <= {"all-gather", "all-reduce", "reduce-scatter",
+                                                 "all-to-all", "broadcast"}
+    mem = rec["memory"]
+    # per-shard params, both moments and the batch; the trace's own bytes on top
+    assert mem["opt_bytes"] == 2 * mem["params_bytes"] > 0
+    assert mem["estimate_bytes"] == (mem["params_bytes"] + mem["opt_bytes"] + mem["batch_bytes"]
+                                     + mem["trace_live_peak_bytes"])
+    assert mem["fits"] and mem["device_bytes"] == 80e9
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["status"] == "ok"
+
+
+def test_arch_cells_decode_and_skip():
+    rec = dryrun.run_arch_cell("mamba2-1.3b", "long_500k", "multi_pod", reduced=True)
+    assert rec["status"] == "ok" and rec["chips"] == 512 and rec["kind"] == "decode"
+    assert rec["memory"]["cache_bytes"] > 0 and rec["memory"]["opt_bytes"] == 0
+    skip = dryrun.run_arch_cell("qwen3-8b", "long_500k", "single_pod")
+    assert skip == {"cell": "qwen3-8b/long_500k/single_pod", "status": "skip",
+                    "reason": "full-attention arch: 500k decode needs sub-quadratic mixing"}
+    assert len(dryrun.all_cells()) == 80

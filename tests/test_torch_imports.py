@@ -1,6 +1,9 @@
 """The port imports torch and numpy only: every module of `repro_torch`,
 imported in a fresh interpreter, brings in no `jax`, no `ml_dtypes` and
-nothing of the JAX package `repro`."""
+nothing of the JAX package `repro`.  The mesh half of the LM substrate is
+among them, and importing it joins no process group and loads no fake
+group (`torch.testing._internal.distributed.fake_pg`: only the dry run's
+child process does)."""
 import os
 import subprocess
 import sys
@@ -14,9 +17,14 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repr
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
-print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 60 else 0)
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")
+             or m.startswith("torch.testing._internal.distributed"))
+mesh_half = {"repro_torch.training.sharding_rules", "repro_torch.launch.mesh",
+             "repro_torch.serving.lm_demo.steps", "repro_torch.analysis.flops_model",
+             "repro_torch.analysis.comm_stats"}
+import torch.distributed as dist
+print(len(names), "modules;", "foreign:", bad, "missing:", sorted(mesh_half - set(names)))
+sys.exit(1 if bad or len(names) < 65 or mesh_half - set(names) or dist.is_initialized() else 0)
 """
 
 

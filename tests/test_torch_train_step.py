@@ -126,7 +126,7 @@ def test_donated_step_equals_functional_step():
 
 def test_mesh_and_missing_card_are_refused():
     _, tc = fp32("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="ShardingProfile"):
         make_train_step(Model(tc), AdamWConfig(), mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
