@@ -95,7 +95,7 @@ Phases, each printing one line before the last:
      cast once: prefill against teacher-forced decode at the reference's
      atol/rtol 0.05 in fp32 compute at full depth and in bf16 on the params
      cut to 2 layers (bf16 at full depth measured, with both bf16 paths
-     against the fp32 logits), two engine runs of 8 requests (64-token
+     against the fp32 logits), two engine runs of 8 requests (16-token
      prompts, 32 new tokens, 4 slots) with identical tokens, the 2-layer cut
      in fp32 on the card against the CPU (rtol 1e-3), and the times: ms per
      batched decode step against its bound from the weights' bytes, ms per
@@ -130,10 +130,23 @@ Phases, each printing one line before the last:
      greedy decode steps, the tokens equal to the single-device
      `prefill`/`decode_step`'s, and ms per decode step against the single
      device's; lm_mesh_dryrun: `python -m repro_torch.launch.dryrun --arch
-     qwen3-8b --shape train_4k --mesh single_pod` in a child process (the
-     fake process group at 256 ranks) and the cell of the mesh train phase
+     qwen3-8b --shape train_4k --mesh single_pod --num-layers 4` in a child
+     process (the fake process group at 256 ranks) and the cell of the mesh
+     train phase
      (`--mesh host --mesh-shape 1,1 --num-layers 8 --global-batch 8
      --seq-len 256`), its per-card estimate against the measured peak.
+ 12. examples: the port's five examples (`examples/*_torch.py`) in process
+     through their `main(argv)` at the reference's defaults, with the
+     tensors of the phases before released and the launch counters set to
+     0 around each (no kernel of the port runs in an example): quickstart
+     (its instance, layout and g against what examples/quickstart.py
+     prints, g at rtol 1e-4), production_solve at its defaults and at the
+     main path's 1M x 10k (the example's own drift assertion; ms per AGD
+     iteration from its day-1 seconds), lp_moe_routing (the top-k router's
+     line as the reference prints it; the example's own max-load
+     assertion), serve_lm (46 engine steps), train_lm at the 10m preset
+     (200 steps) and the 100m one (30 steps) in checkpoint directories of
+     their own (finite logged losses, the last below the first).
 The sweeps include sweep_batched (kernel 1 over B = 1, 2, 4, 7 stacked
 lanes, each lane bitwise its solo call, with one gamma and with a gamma per
 lane) and sweep_rows (kernel 2 over row
@@ -2723,6 +2736,10 @@ def profile_window(step, tag: str, iters: int) -> dict:
 LM_TOL = dict(atol=0.05, rtol=0.05)  # the reference's, tests/test_lm_demo.py:66-76
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 LM_DEVICE = "cuda"  # the LM phases' device
+# prompt tokens per request of lm_qwen3_8b's engine runs: each is prefilled
+# by teacher-forced batch-1 decode steps of ~80 ms at 36 layers (64 tokens
+# took ~80 s more of the whole script's time limit)
+LM_ENGINE_PROMPT = 16
 
 
 def lm_release() -> dict:
@@ -2919,8 +2936,8 @@ def phase_lm_qwen3_8b() -> dict:
     compute, held at the reference's atol/rtol 0.05; in bf16 held on the
     same params cut to 2 layers (the reference test's depth), and measured
     at full depth with both bf16 paths against the fp32 logits.  8 requests
-    of 64-token prompts, 32 new tokens each, on 4 slots through
-    `ServeEngine`, twice, with identical tokens; the 2-layer cut in fp32
+    of 16-token prompts (LM_ENGINE_PROMPT), 32 new tokens each, on 4 slots
+    through `ServeEngine`, twice, with identical tokens; the 2-layer cut in fp32
     compute on the card against the CPU; then the times."""
     import numpy as np
     import torch
@@ -2971,7 +2988,8 @@ def phase_lm_qwen3_8b() -> dict:
         lm_release()
 
         pvd16 = lm_prefill_vs_decode(model, params, toks, "qwen3-8b bf16", hold=False)
-        prompts = [rng.integers(0, cfg.vocab_size, 64).astype(np.int32) for _ in range(8)]
+        prompts = [rng.integers(0, cfg.vocab_size, LM_ENGINE_PROMPT).astype(np.int32)
+                   for _ in range(8)]
         runs = [lm_engine_run(model, params, prompts, 32, 4) for _ in range(2)]
         if runs[0]["tokens"] != runs[1]["tokens"]:
             fail("qwen3-8b: two engine runs gave different tokens")
@@ -2997,12 +3015,12 @@ def phase_lm_qwen3_8b() -> dict:
                               "bf16_2_layers": lm_public(pvd_cut),
                               "bf16_36_layers": lm_public(pvd16),
                               "bf16_36_layers_against_fp32": lm_against(pvd16, pvd32)},
-        "engine": {"requests": 8, "prompt": 64, "max_new": 32, "slots": 4,
+        "engine": {"requests": 8, "prompt": LM_ENGINE_PROMPT, "max_new": 32, "slots": 4,
                    "runs_s": [r["seconds"] for r in runs],
                    "tok_per_s": [r["tok_per_s"] for r in runs], "tokens_identical": True},
         "decode_step": decode,
         "prefill": {"batch": 4, "prompt": 64, "ms": prefill_ms, "ms_per_token": prefill_ms / 256},
-        "engine_prefill_ms_per_token": engine_prefill_ms / 64,
+        "engine_prefill_ms_per_token": engine_prefill_ms / LM_ENGINE_PROMPT,
         "serve_peak_bytes": peak,
     }
     emit(out)
@@ -3554,11 +3572,14 @@ def phase_lm_mesh_serve_qwen3_8b() -> dict:
 
 def phase_lm_mesh_dryrun(train: dict) -> dict:
     """The dry run's arch cells in a child process (PyTorch's fake process
-    group; no card): qwen3-8b train_4k on the 16 x 16 mesh, then the mesh
-    train phase's own cell (8 layers, batch 8 x 256, mesh (1, 1)), whose
-    per-card memory estimate is set against that phase's measured peak."""
+    group; no card): qwen3-8b train_4k on the 16 x 16 mesh cut to 4 layers
+    (the same ops as the whole model's 36, which took ~40 s more of the
+    script's time limit), then the mesh train phase's own cell (8 layers,
+    batch 8 x 256, mesh (1, 1)), whose per-card memory estimate is set
+    against that phase's measured peak."""
     out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
-    cells = {"qwen3-8b/train_4k/single_pod": ["--mesh", "single_pod"],
+    cells = {"qwen3-8b/train_4k/single_pod, 4 layers": ["--mesh", "single_pod",
+                                                          "--num-layers", "4"],
              "qwen3-8b/train_4k/host1x1 (the mesh train phase)": [
                  "--mesh", "host", "--mesh-shape", "1,1", "--num-layers", "8",
                  "--global-batch", "8", "--seq-len", "256"]}
@@ -3589,6 +3610,142 @@ def phase_lm_mesh_dryrun(train: dict) -> dict:
            "mesh_train_peak_bytes": runs["peak_bytes"],
            "estimate_over_peak": est / runs["peak_bytes"],
            "estimate_over_steady_peak": est / runs["peak_bytes_steps_2_to_4"]}
+    emit(out)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# The examples: the port's `examples/*_torch.py`, each through its main(argv).
+# ---------------------------------------------------------------------------
+
+# What the JAX package's examples print on the CPU (examples/quickstart.py,
+# lp_moe_routing.py, serve_lm.py at their defaults, JAX_PLATFORMS=cpu).
+EXAMPLE_REFERENCE = {
+    "quickstart": ["instance: 5000 sources, 200 destinations, 29026 eligible pairs",
+                   "buckets: [(1, 70), (2, 250), (4, 1193), (8, 2834), (16, 641), (32, 1)]"],
+    "quickstart_g": -5092.7583,
+    "top_k_router": "top-k router : max load 3384  imbalance 6.61x  dropped 60.1%",
+    "serve_lm_steps": 46,
+}
+EXAMPLE_RUNS = (
+    ("quickstart_torch", []),
+    ("production_solve_torch", []),
+    ("production_solve_torch", ["--sources", "1000000", "--destinations", "10000"]),
+    ("lp_moe_routing_torch", []),
+    ("serve_lm_torch", []),
+    ("train_lm_torch", ["--ckpt-dir", "{root}/10m"]),
+    ("train_lm_torch", ["--preset", "100m", "--steps", "30", "--ckpt-dir", "{root}/100m"]),
+)
+
+
+def load_example(name: str):
+    """examples/<name>.py of this checkout as a module (examples/ is not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_number(lines: list, pattern: str, what: str) -> float:
+    for ln in lines:
+        m = re.search(pattern, ln)
+        if m:
+            x = float(m.group(1))
+            if not math.isfinite(x):
+                fail(f"examples {what}: {ln!r} is not finite")
+            return x
+    fail(f"examples {what}: no line matches {pattern!r} in {lines}")
+
+
+def check_example(name: str, argv: list, lines: list, log: list) -> dict:
+    """The example's printed lines against what the reference prints where
+    the card must give the same (the instance, the layout, g at rtol 1e-4,
+    the top-k routing, the engine's step count); finite numbers elsewhere.
+    The examples' own assertions (production_solve's drift bound, the LP
+    router's max load) have run inside main."""
+    what = f"{name} {' '.join(argv)}".strip()
+    if name == "quickstart_torch":
+        if lines[:2] != EXAMPLE_REFERENCE["quickstart"]:
+            fail(f"examples {what}: {lines[:2]} against {EXAMPLE_REFERENCE['quickstart']}")
+        g = example_number(lines, r"dual objective g = (\S+)", what)
+        want = EXAMPLE_REFERENCE["quickstart_g"]
+        if not abs(g - want) <= 1e-4 * abs(want):
+            fail(f"examples {what}: g = {g} against the reference's {want} (rtol 1e-4)")
+        return {"g": g, "max_violation": example_number(lines, r"max violation = (\S+)", what)}
+    if name == "production_solve_torch":
+        day = [example_number(lines, rf"\[day {d}\] \D*([\d.]+)s", what) for d in (0, 1)]
+        if "stability holds" not in lines[-1]:
+            fail(f"examples {what}: {lines[-1]!r}")
+        iters = 6 * 120  # six gamma stages down to the default floor 0.01, 120 each
+        return {"g0": example_number(lines, r"\[day 0\].*g=(\S+)", what),
+                "g1": example_number(lines, r"\[day 1\].*g=(\S+)", what),
+                "drift": example_number(lines, r"\|\|x1-x0\|\| = (\S+)", what),
+                "bound": example_number(lines, r"theoretical bound \S+ (\S+)", what),
+                "day_seconds": day, "agd_iters_per_day": iters,
+                "ms_per_agd_iter_day1": day[1] / iters * 1e3}
+    if name == "lp_moe_routing_torch":
+        if lines[1] != EXAMPLE_REFERENCE["top_k_router"]:
+            fail(f"examples {what}: {lines[1]!r} against {EXAMPLE_REFERENCE['top_k_router']!r}")
+        return {"lp_max_load": example_number(lines, r"LP router +: max load (\d+)", what),
+                "loss": example_number(lines, r"loss=(\S+) ", what)}
+    if name == "serve_lm_torch":
+        steps = example_number(lines, r"in (\d+) engine steps", what)
+        if steps != EXAMPLE_REFERENCE["serve_lm_steps"] or len(lines) != 4:
+            fail(f"examples {what}: {lines}")
+        return {"steps": steps, "tok_per_s": example_number(lines, r"\((\S+) tok/s", what)}
+    steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 200
+    losses = [float(m.split()[3]) for m in log if m.startswith("step ")]
+    if (f"finished at step {steps};" not in lines[-1] or len(losses) != steps // 10
+            or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]):
+        fail(f"examples {what}: {lines} {log}")
+    return {"losses": losses}
+
+
+def phase_examples() -> dict:
+    """Each port example in process through its `main(argv)` on the card, at
+    the reference's defaults: quickstart, production_solve (and again at the
+    main path's 1M x 10k), lp_moe_routing, serve_lm, train_lm (10m, 200
+    steps; 100m, 30 steps), each train run in a checkpoint directory of its
+    own.  Launch counters set to 0 before each and read after: no kernel of
+    the port runs in an example.  What each printed and its host seconds
+    (synchronised at the end)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    lm_release()
+    root = ROOT / "build" / "chip_smoke" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = []
+    for name, argv in EXAMPLE_RUNS:
+        argv = [a.format(root=root) for a in argv]
+        mod = load_example(name)
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), LoopLog() as loop_log:
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lm_no_kernel(f"examples {name}")
+        lines = out.getvalue().splitlines()
+        if rc != 0 or loop_log.retries:
+            fail(f"examples {name} {argv}: exit {rc}, {loop_log.retries} retries")
+        runs.append({"example": name, "argv": argv, "seconds": seconds, "stdout": lines,
+                     "checked": check_example(name, argv, lines, loop_log.messages),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        print(f"chip_smoke: examples {name} {' '.join(argv)} {seconds:.1f} s",
+              file=sys.stderr, flush=True)
+        torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "examples", "runs": runs, "seconds": sum(r["seconds"] for r in runs)}
     emit(out)
     return out
 
@@ -3729,6 +3886,8 @@ def main() -> int:
     mesh_train = timed(phase_lm_mesh_train_qwen3_8b)
     timed(phase_lm_mesh_serve_qwen3_8b)
     timed(phase_lm_mesh_dryrun, mesh_train)
+    # 12. the port's examples
+    timed(phase_examples)
 
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,3 +17,10 @@
   ref.py                  plain PyTorch versions (CPU path, ground truth)
   ops.py                  routing: CPU -> plain version, CUDA -> kernel
 """
+from repro_torch.kernels.ops import (
+    fused_dual_oracle,
+    fused_dual_primal,
+    fused_project_simplex,
+)
+
+__all__ = ["fused_dual_oracle", "fused_dual_primal", "fused_project_simplex"]

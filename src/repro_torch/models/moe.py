@@ -37,7 +37,7 @@ import torch
 from repro_torch.core.projections import project_simplex
 from repro_torch.models.layers import ParamInit, apply_dense, apply_mlp, init_dense, init_mlp
 
-__all__ = ["init_moe", "apply_moe", "lp_route"]
+__all__ = ["init_moe", "apply_moe", "lp_route", "top_k"]
 
 
 def init_moe(init: ParamInit, cfg) -> dict:
@@ -131,7 +131,7 @@ def _apply_moe_on_mesh(p, cfg, x2d):
     return out
 
 
-def _top_k(probs: torch.Tensor, k: int):
+def top_k(probs: torch.Tensor, k: int):
     """`jax.lax.top_k`: the k largest per row, the lower index first on ties."""
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[:, :k], ids[:, :k]
@@ -148,7 +148,7 @@ def _moe_one_group(p, cfg, x2d: torch.Tensor, mesh=None, shared=True) -> torch.T
     probs = torch.softmax(logits, dim=-1)
     if m.router == "lp":
         probs = lp_route(probs, k, capacity=C, iters=m.lp_iters, gamma=m.lp_gamma)
-    weights, ids = _top_k(probs, k)  # [T, k]
+    weights, ids = top_k(probs, k)  # [T, k]
     weights = (weights / torch.clamp_min(
         torch.sum(weights, dim=-1, keepdim=True), 1e-9
     )).to(x2d.dtype)

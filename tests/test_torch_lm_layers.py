@@ -300,7 +300,7 @@ def test_top_k_tie_order_is_jax_lax_top_k():
                       [0.25, 0.25, 0.25, 0.25, 0.0, 0.0]], np.float32)
     for k in (1, 2, 3, 4):
         wr, ir = jax.lax.top_k(jnp.asarray(probs), k)
-        wt, it = TM._top_k(torch.from_numpy(probs), k)
+        wt, it = TM.top_k(torch.from_numpy(probs), k)
         assert it.tolist() == np.asarray(ir).tolist()
         assert wt.tolist() == np.asarray(wr).tolist()
 
