@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import objective as cobj
 from repro_torch.core.maximizer import MaximizerConfig, StageStats, step_size
 from repro_torch.core.objective import (
@@ -405,17 +406,20 @@ def batched_continuation(
     stats: list[StageStats] = []
     etas, iters = [], []
     B = lam0.shape[0]
-    for gamma in cfg.gammas:
+    for k, gamma in enumerate(cfg.gammas):
         eta = step_size(cfg, sigma_sq, gamma).to(lam.dtype)
         body = _agd_body(obj.calculate, gamma, eta, acceleration=cfg.acceleration,
                          adaptive_restart=cfg.adaptive_restart)
-        if cfg.early_stop:
-            carry, (bg, bgn, bv), used = _stage_early(
-                body, _init_carry(lam), cfg.iters_per_stage, check_every=cfg.check_every,
-                tol_grad=cfg.tol_grad, tol_viol=cfg.tol_viol)
-        else:
-            carry, (bg, bgn, bv) = _run(body, _init_carry(lam), cfg.iters_per_stage)
-            used = torch.full((B,), cfg.iters_per_stage, dtype=torch.int64, device=lam.device)
+        with telemetry.span("stage", device=lam.device, stage=k, gamma=float(gamma)):
+            if cfg.early_stop:
+                carry, (bg, bgn, bv), used = _stage_early(
+                    body, _init_carry(lam), cfg.iters_per_stage,
+                    check_every=cfg.check_every, tol_grad=cfg.tol_grad,
+                    tol_viol=cfg.tol_viol)
+            else:
+                carry, (bg, bgn, bv) = _run(body, _init_carry(lam), cfg.iters_per_stage)
+                used = torch.full((B,), cfg.iters_per_stage, dtype=torch.int64,
+                                  device=lam.device)
         lam = carry.lam
         stats.append(StageStats(g=bg, grad_norm=bgn, max_violation=bv))
         etas.append(eta)

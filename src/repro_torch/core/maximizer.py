@@ -14,8 +14,9 @@ early-stopping stage waits once per `check_every` chunk, as the reference's
 `while_loop` of scanned chunks does.
 
 Each stage runs inside a `telemetry.span("stage")` and the power iteration
-inside `telemetry.span("power_iteration")`, as in the reference; a span
-reads the host clock only, so it measures the enqueue of device work.
+inside `telemetry.span("power_iteration")`, as in the reference; both ask
+for the device clock (`device=`), since on the card the host clock of a
+span measures the enqueue of device work.
 
 The stage loops take `calculate(lam, gamma, comm) -> (DualEval, comm)`:
 `comm` is an opaque per-process communication state threaded through the
@@ -306,7 +307,7 @@ def _continuation(
     iters_used: list[int] = []
     for k, gamma in enumerate(cfg.gammas):
         eta = step_size(cfg, sigma_sq, gamma).to(lam.dtype)
-        with telemetry.span("stage", stage=k, gamma=float(gamma)):
+        with telemetry.span("stage", device=lam.device, stage=k, gamma=float(gamma)):
             if cfg.early_stop:
                 lam, st, _, used = _stage_scan_early(
                     calculate, lam, gamma, eta, cfg.iters_per_stage,
@@ -354,6 +355,6 @@ class Maximizer:
             torch.zeros(obj.dual_dim, dtype=torch.float32, device=obj.instance.device)
             if lam0 is None else lam0
         )
-        with telemetry.span("power_iteration"):
+        with telemetry.span("power_iteration", device=lam.device):
             sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
         return _continuation(local_calculate(obj), lam, sigma_sq, cfg)

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.batched import BatchedObjective, batched_continuation, normalize_lanes
 from repro_torch.core.maximizer import (
     MaximizerConfig,
@@ -47,30 +48,32 @@ def agd_raw_solve(
     obj = MatchingObjective(inst, fused_oracle=fused_oracle)
     calc = local_calculate(obj)
     if sigma_sq is None:
-        sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
+        with telemetry.span("power_iteration", device=inst.device):
+            sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
     lam = lam0
     stats: list[StageStats] = []
     etas: list[torch.Tensor] = []
     iters: list[int] = []
-    for gamma in cfg.gammas:
+    for k, gamma in enumerate(cfg.gammas):
         eta = step_size(cfg, sigma_sq, gamma).to(lam.dtype)
-        if cfg.early_stop:
-            # single process: the local convergence predicate is the global one
-            lam, st, _, used = _stage_scan_early(
-                calc, lam, gamma, eta, cfg.iters_per_stage,
-                acceleration=cfg.acceleration,
-                adaptive_restart=cfg.adaptive_restart,
-                tol_grad=cfg.tol_grad,
-                tol_viol=cfg.tol_viol,
-                check_every=cfg.check_every,
-            )
-        else:
-            lam, st, _ = _stage_scan(
-                calc, lam, gamma, eta, cfg.iters_per_stage,
-                acceleration=cfg.acceleration,
-                adaptive_restart=cfg.adaptive_restart,
-            )
-            used = cfg.iters_per_stage
+        with telemetry.span("stage", device=inst.device, stage=k, gamma=float(gamma)):
+            if cfg.early_stop:
+                # single process: the local convergence predicate is the global one
+                lam, st, _, used = _stage_scan_early(
+                    calc, lam, gamma, eta, cfg.iters_per_stage,
+                    acceleration=cfg.acceleration,
+                    adaptive_restart=cfg.adaptive_restart,
+                    tol_grad=cfg.tol_grad,
+                    tol_viol=cfg.tol_viol,
+                    check_every=cfg.check_every,
+                )
+            else:
+                lam, st, _ = _stage_scan(
+                    calc, lam, gamma, eta, cfg.iters_per_stage,
+                    acceleration=cfg.acceleration,
+                    adaptive_restart=cfg.adaptive_restart,
+                )
+                used = cfg.iters_per_stage
         stats.append(st)
         etas.append(eta)
         iters.append(used)
@@ -105,7 +108,8 @@ def agd_raw_solve_batched(
         stacked = normalize_lanes(stacked)
     obj = BatchedObjective(stacked, fused_oracle=fused_oracle)
     if sigma_sq is None:
-        sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
+        with telemetry.span("power_iteration", device=stacked.device):
+            sigma_sq = obj.power_iteration(cfg.seed, iters=cfg.power_iters)
     lam, final, stats, etas, iters = batched_continuation(obj, lam0, cfg, sigma_sq)
     return RawSolve(
         lam=lam, x_slabs=final.x_slabs, g=final.g, stats=stats, sigma_sq=sigma_sq,

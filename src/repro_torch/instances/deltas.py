@@ -703,43 +703,47 @@ class DeltaIngestor:
         return report
 
     def _apply(self, delta: InstanceDelta) -> DeltaReport:
-        self._validate(delta)
-        self._precheck(delta)
-        plan_or_reason = self._plan_moves(delta)
+        with telemetry.span("delta_validate"):
+            self._validate(delta)
+            self._precheck(delta)
+            plan_or_reason = self._plan_moves(delta)
         if isinstance(plan_or_reason, str):
-            return self._fallback(delta, plan_or_reason)
+            with telemetry.span("delta_rebucketize"):
+                return self._fallback(delta, plan_or_reason)
         moves, to_free = plan_or_reason
 
         self._touched = {}
         try:
-            # 1. deletions (rows stay owned even at transient degree 0, so a
-            #    delete-all-then-reinsert delta keeps the source's row)
-            for s, d in zip(delta.delete_src, delta.delete_dst):
-                self._delete_edge(int(s), int(d))
-            # 2. release rows of sources whose *final* degree is 0
-            #    (planner-known), making them available to the relocation pass
-            for s in to_free:
-                self._release_row(s)
-            # 3. row relocations / allocations for grown sources
-            for s, t_new in moves:
-                self._move_row(s, t_new)
-            # 4. insertions into (now sufficient) row headroom
-            for j, (s, d) in enumerate(zip(delta.insert_src, delta.insert_dst)):
-                self._insert_edge(
-                    int(s), int(d),
-                    float(delta.insert_values[j]), delta.insert_coeff[:, j],
-                )
-            # 5. cost/coefficient updates
-            for j, (s, d) in enumerate(zip(delta.update_src, delta.update_dst)):
-                val = None if delta.update_values is None else float(delta.update_values[j])
-                co = None if delta.update_coeff is None else delta.update_coeff[:, j]
-                self._update_edge(int(s), int(d), val, co)
-            # 6. budgets
-            if delta.rhs is not None:
-                self._rhs64[:] = delta.rhs
-                self.packed.rhs = self._rhs_tensor()
-            self.generation += 1
-            plan = self._emit_plan(rhs_updated=delta.rhs is not None)
+            with telemetry.span("delta_edits"):
+                # 1. deletions (rows stay owned even at transient degree 0, so a
+                #    delete-all-then-reinsert delta keeps the source's row)
+                for s, d in zip(delta.delete_src, delta.delete_dst):
+                    self._delete_edge(int(s), int(d))
+                # 2. release rows of sources whose *final* degree is 0
+                #    (planner-known), making them available to the relocation pass
+                for s in to_free:
+                    self._release_row(s)
+                # 3. row relocations / allocations for grown sources
+                for s, t_new in moves:
+                    self._move_row(s, t_new)
+                # 4. insertions into (now sufficient) row headroom
+                for j, (s, d) in enumerate(zip(delta.insert_src, delta.insert_dst)):
+                    self._insert_edge(
+                        int(s), int(d),
+                        float(delta.insert_values[j]), delta.insert_coeff[:, j],
+                    )
+                # 5. cost/coefficient updates
+                for j, (s, d) in enumerate(zip(delta.update_src, delta.update_dst)):
+                    val = None if delta.update_values is None else float(delta.update_values[j])
+                    co = None if delta.update_coeff is None else delta.update_coeff[:, j]
+                    self._update_edge(int(s), int(d), val, co)
+                # 6. budgets
+                if delta.rhs is not None:
+                    self._rhs64[:] = delta.rhs
+                    self.packed.rhs = self._rhs_tensor()
+                self.generation += 1
+            with telemetry.span("delta_plan"):
+                plan = self._emit_plan(rhs_updated=delta.rhs is not None)
         finally:
             self._touched = None
         return DeltaReport(

@@ -157,6 +157,9 @@ def run(args) -> ServiceRun:
     )
 
     device = resolve_device(args.device)
+    if args.trace_out and not telemetry.get_tracer().recording:
+        # the process default records nothing: record from the first cadence
+        telemetry.set_tracer(telemetry.Tracer())
     rng = np.random.default_rng(args.seed)
     spec = MatchingInstanceSpec(
         num_sources=args.sources,

@@ -201,12 +201,14 @@ class Scheduler:
             # (possibly through the selector) so the choice is frozen with
             # the rest of the start snapshot and reported after the fence.
             engine = s.engine_choice()
+            with telemetry.span("unpacker", tenant=name):
+                unpacker = s.ingestor.primal_unpacker()
             starts[name] = (
                 cold,
                 reason,
                 lam0,
                 dc_norm,
-                s.ingestor.primal_unpacker(),
+                unpacker,
                 s._dirty_count,
                 engine,
             )
@@ -292,15 +294,23 @@ class Scheduler:
                 group=",".join(sorted(names)[:4]),
             )
 
-    @staticmethod
-    def _run(d: _Dispatched) -> None:
+    def _run(self, d: _Dispatched, parent: Optional[int] = None) -> None:
+        """Run each dispatched solve inside a `solve` span; `parent` is the
+        dispatching cadence's span id where the solves run on another
+        thread than the cadence's."""
         for entry in d.batched + d.solo:
-            entry[2] = entry[2]()
+            batched = isinstance(entry[0], list)  # solo entries name one tenant
+            with telemetry.span("solve", device=self.device, parent=parent,
+                                tenants=entry[0] if batched else [entry[0]],
+                                mode="cold" if entry[1] else "warm", batched=batched):
+                entry[2] = entry[2]()
 
-    def _start(self, d: _Dispatched, *, overlap: bool) -> None:
+    def _start(self, d: _Dispatched, *, overlap: bool,
+               parent: Optional[int] = None) -> None:
         """Run the dispatched solves: inline, or (``overlap``) on a solver
         thread, on the card on the scheduler's own stream, which first waits
-        for everything the calling thread enqueued (the replays)."""
+        for everything the calling thread enqueued (the replays); the solver
+        thread's `solve` spans name `parent` (the cadence's span id)."""
         if not overlap:
             self._run(d)
             return
@@ -314,11 +324,11 @@ class Scheduler:
         def work():
             try:
                 if d.stream is None:
-                    self._run(d)
+                    self._run(d, parent)
                     return
                 with torch.cuda.device(self.device), torch.cuda.stream(d.stream):
                     d.stream.wait_event(synced)
-                    self._run(d)
+                    self._run(d, parent)
             except Exception as e:  # re-raised by _fence on the caller
                 d.error = e
 
@@ -344,7 +354,9 @@ class Scheduler:
         solo_names: list[str] = []
         for names, cold, raw, reuse in batched:
             batched_groups.append(list(names))
-            for name, res in zip(names, BatchedSolvePool.finish(raw)):
+            with telemetry.span("solve_wait", tenants=list(names)):
+                results = BatchedSolvePool.finish(raw)
+            for name, res in zip(names, results):
                 reports[name] = self.sessions[name].absorb(
                     res,
                     cold=cold,
@@ -359,8 +371,10 @@ class Scheduler:
                 )
         for name, cold, raw, sigma_reused in solo:
             solo_names.append(name)
+            with telemetry.span("solve_wait", tenants=[name]):
+                res = to_solve_result(raw)
             reports[name] = self.sessions[name].absorb(
-                to_solve_result(raw),
+                res,
                 cold=cold,
                 cold_reason=starts[name][1],
                 batched=False,
@@ -381,9 +395,12 @@ class Scheduler:
         *,
         force_cold: bool = False,
     ) -> CadenceReport:
-        """Ingest deltas and solve every tenant once (synchronous driver)."""
+        """Ingest deltas and solve every tenant once (synchronous driver).
+        The `cadence` span's `index` is the cadence's place among this
+        call's cadences, as in `run_pipeline`: here always 0."""
         t0 = time.perf_counter()
-        with telemetry.span("cadence", driver="sync", tenants=len(self.sessions)):
+        with telemetry.span("cadence", driver="sync", index=0,
+                            tenants=len(self.sessions)):
             with telemetry.span("ingest"):
                 ingest, _ = self._ingest_all(deltas, strict=True)
             with telemetry.span("dispatch"):
@@ -432,10 +449,10 @@ class Scheduler:
             # backlog a stuck device solve would grow
             reg.set_gauge("scheduler_queue_depth", len(deltas) - t)
             t0 = time.perf_counter()
-            with telemetry.span("cadence", driver="pipeline", index=t):
+            with telemetry.span("cadence", driver="pipeline", index=t) as cad:
                 with telemetry.span("dispatch"):
                     dispatched = self._dispatch(force_cold)
-                    self._start(dispatched, overlap=True)
+                    self._start(dispatched, overlap=True, parent=cad.id)
                 t_dispatched = time.perf_counter()
                 if t + 1 < len(deltas):
                     # the overlap: host-side validation + slab surgery + plan

@@ -300,10 +300,11 @@ class SolveSession:
             )
         elif plans:
             nbytes = 0
-            for plan in plans:
-                self._device_inst = apply_scatter_plan(self._device_inst, plan)
-                self._device_generation = plan.generation
-                nbytes += plan.nbytes
+            with telemetry.span("replay", device=self.device, plans=len(plans)):
+                for plan in plans:
+                    self._device_inst = apply_scatter_plan(self._device_inst, plan)
+                    self._device_generation = plan.generation
+                    nbytes += plan.nbytes
             self._pending_plans = []
             self.last_transfer = {"mode": "scatter", "bytes": nbytes}
         else:
@@ -589,41 +590,44 @@ class SolveSession:
             "sla_rel": self.config.drift_sla_rel,
             "sla_ok": None,
         }
-        keys, x = unpack(res.x_slabs)
+        with telemetry.span("unpack"):
+            keys, x = unpack(res.x_slabs)
         if self.prev_primal is not None:
-            drift = _edge_drift(self.prev_primal, (keys, x))
-            x_norm = float(np.linalg.norm(x))
-            report["drift_l2"] = drift
-            report["drift_rel"] = drift / max(x_norm, 1e-12)
-            resized = (
-                self.lam_prev is not None
-                and tuple(self.lam_prev.shape) != tuple(res.lam.shape)
-            )
-            if resized:
-                # Dual-dim resize: ||dlam|| is undefined across dual spaces,
-                # so the analytic (sigma ||dlam|| + ||dc||)/gamma bound does
-                # not apply — report it as unbounded rather than letting a
-                # silent dlam=0 make the one cadence guaranteed to churn
-                # look like the quietest (`jsonable` serializes inf NaN-safe
-                # as "inf"; cold_reason carries "dual_dim_drift").
-                report["dual_resized"] = True
-                report["drift_bound"] = float("inf")
-            else:
-                dlam = (
-                    float(torch.linalg.vector_norm(res.lam - self.lam_prev))
-                    if self.lam_prev is not None
-                    else 0.0
+            with telemetry.span("drift"):
+                drift = _edge_drift(self.prev_primal, (keys, x))
+                x_norm = float(np.linalg.norm(x))
+                report["drift_l2"] = drift
+                report["drift_rel"] = drift / max(x_norm, 1e-12)
+                resized = (
+                    self.lam_prev is not None
+                    and tuple(self.lam_prev.shape) != tuple(res.lam.shape)
                 )
-                sigma = float(torch.sqrt(torch.as_tensor(res.sigma_sq)))
-                report["drift_bound"] = drift_bound(
-                    gamma_floor, dc_norm=dc_norm, dlam_norm=dlam,
-                    sigma_max=sigma,
-                )
-            if self.config.drift_sla_rel is not None:
-                report["sla_ok"] = bool(
-                    report["drift_rel"] <= self.config.drift_sla_rel
-                )
-        self._record_telemetry(res, report, cfg)
+                if resized:
+                    # Dual-dim resize: ||dlam|| is undefined across dual spaces,
+                    # so the analytic (sigma ||dlam|| + ||dc||)/gamma bound does
+                    # not apply — report it as unbounded rather than letting a
+                    # silent dlam=0 make the one cadence guaranteed to churn
+                    # look like the quietest (`jsonable` serializes inf NaN-safe
+                    # as "inf"; cold_reason carries "dual_dim_drift").
+                    report["dual_resized"] = True
+                    report["drift_bound"] = float("inf")
+                else:
+                    dlam = (
+                        float(torch.linalg.vector_norm(res.lam - self.lam_prev))
+                        if self.lam_prev is not None
+                        else 0.0
+                    )
+                    sigma = float(torch.sqrt(torch.as_tensor(res.sigma_sq)))
+                    report["drift_bound"] = drift_bound(
+                        gamma_floor, dc_norm=dc_norm, dlam_norm=dlam,
+                        sigma_max=sigma,
+                    )
+                if self.config.drift_sla_rel is not None:
+                    report["sla_ok"] = bool(
+                        report["drift_rel"] <= self.config.drift_sla_rel
+                    )
+        with telemetry.span("convergence"):
+            self._record_telemetry(res, report, cfg)
         if self.engine_selector is not None and self.config.engine == "auto":
             # feed the routing policy what it routes on: iterations-to-tol,
             # with budget exhaustion flagged as non-convergence

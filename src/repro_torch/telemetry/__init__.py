@@ -7,8 +7,10 @@ Four pieces, one import:
   * `MetricsRegistry` (`registry.py`) — thread-safe labelled counters /
     gauges / histograms; `get_registry()` is the process default every
     subsystem records into.
-  * `span` (`tracing.py`) — nested wall-clock spans with Chrome-trace
-    (Perfetto) export and optional `torch.profiler.record_function`
+  * `span` (`tracing.py`) — nested spans with Chrome-trace (Perfetto)
+    export, off until a `Tracer` is installed (`set_tracer`); host
+    wall-clock durations, the device's clock where a span asks for it
+    (`device=` a card), and optional `torch.profiler.record_function`
     pass-through (`Tracer(profiler_annotations=True)`), so span names land
     in `torch.profiler` traces.
   * `ConvergenceTrace` / `StallDetector` (`convergence.py`) — per-solve
@@ -19,10 +21,13 @@ Four pieces, one import:
     and Prometheus text exposition.
 
 Instrumentation sites: `instances.deltas` (delta counts, scatter bytes,
-rejections), `service.engine` (solver cache hits and first calls),
-`core.maximizer` and `core.sharding` (solve and stage spans),
-`formulation.formulation` (compile span and counters).  Pure Python: the
-registry, tracer and exporters never touch the device.
+rejections; the ingest's phase spans), `service.engine` (solver cache hits
+and first calls), `service.scheduler` and `service.session` (cadence,
+solve, replay and absorb spans), `engines.agd`, `core.maximizer` and
+`core.sharding` (power-iteration and stage spans),
+`formulation.formulation` (compile span and counters).  The registry and
+exporters are pure Python; the tracer touches the device only to record
+the CUDA events of a `device=` span.
 """
 from repro_torch.telemetry.convergence import (
     ConvergenceTrace,

@@ -1,10 +1,11 @@
 """Card-only tests of the port: the three hand-written kernels (the dual
 oracle, the primal step and the simplex projection) against their plain
 PyTorch versions, the dual oracle as the PDHG engine's fused prox step, and
-small solves through them against the same solves on the CPU; then the
-recurring-solve path: the scatter-plan replay bitwise a fresh upload, a warm
-solve after a replay bitwise the same solve on a fresh upload (no kernel
-plan outlives its instance), and the COO PDHG baseline deterministic on the
+small solves through them against the same solves on the CPU, and a
+span's device clock against CUDA events; then the recurring-solve path:
+the scatter-plan replay bitwise a fresh upload, a warm solve after a replay
+bitwise the same solve on a fresh upload (no kernel plan outlives its
+instance), and the COO PDHG baseline deterministic on the
 card and ending where the CPU's does; then the service: the oracle over a
 tenant axis (B stacked instances in one call) bitwise each lane's solo
 call, the primal step over a list of requested rows bitwise the whole-slab
@@ -213,6 +214,39 @@ def test_fused_solve_launches_kernel_and_matches_cpu(cuda):
                 / torch.linalg.vector_norm(on_cpu.lam))
     assert rel <= 1e-4
     assert abs(float(on_card.g) - float(on_cpu.g)) <= 1e-5 * abs(float(on_cpu.g))
+
+
+def test_span_device_clock_agrees_with_cuda_events(cuda):
+    """A `device=` span's `device_ms` around dual-oracle calls agrees
+    with CUDA events recorded around the same calls within 5%."""
+    from repro_torch import telemetry
+
+    spec = MatchingInstanceSpec(num_sources=200_000, num_destinations=1000,
+                                avg_degree=8.0, seed=5)
+    obj = MatchingObjective(bucketize(generate_matching_instance(spec), device=cuda),
+                            fused_oracle=True)
+    lam = torch.rand(obj.dual_dim, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    obj.calculate(lam, 0.1)  # builds the kernel and its plan
+    torch.cuda.synchronize()
+    tracer, want = telemetry.Tracer(), []
+    prev = telemetry.set_tracer(tracer)
+    try:
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with telemetry.span("oracle", device=cuda):
+                for _ in range(50):
+                    obj.calculate(lam, 0.1)
+            end.record()
+            torch.cuda.synchronize()
+            want.append(start.elapsed_time(end))
+    finally:
+        telemetry.set_tracer(prev)
+    got = [e["args"]["device_ms"] for e in tracer.events()]
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 0.05 * w, (got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])

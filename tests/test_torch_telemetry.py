@@ -47,7 +47,8 @@ from repro_torch.instances import (
     MatchingInstanceSpec,
     generate_matching_instance,
 )
-from repro_torch.service import compiled_solver
+from repro_torch.engines.agd import agd_raw_solve, agd_raw_solve_batched
+from repro_torch.service import Scheduler, ServiceConfig, compiled_solver, stack_instances
 from repro_torch.telemetry import (
     SCHEMA,
     ConvergenceTrace,
@@ -58,6 +59,8 @@ from repro_torch.telemetry import (
     prometheus_text,
     validate_jsonl,
 )
+from repro_torch.telemetry import tracing
+from repro_torch.telemetry.tracing import NullTracer
 
 SPEC = dict(num_sources=120, num_destinations=10, avg_degree=4.0, seed=21)
 BASE = generate_matching_instance(MatchingInstanceSpec(**SPEC))
@@ -329,6 +332,275 @@ def test_maximizer_and_formulation_spans():
     assert reg.counter_value("formulation_primitives_total", formulation=comp.spec.name) == 1
     snap = reg.snapshot()["histograms"]
     assert snap[f"formulation_compile_seconds{{formulation={comp.spec.name}}}"]["count"] == 1
+
+
+# -- the port's spans: off by default, causality, the device clock --------------
+
+
+SPANS_CFG = ServiceConfig(cold=MaximizerConfig(gammas=(1.0, 0.1), iters_per_stage=10),
+                          warm_gammas=(0.1, 0.01), row_headroom=4)
+
+
+def _mixed_delta(edge_list, rng, n_update=6):
+    """Two deletes, three inserts of new edges, `n_update` updates of other
+    edges and new budgets: a delta with every kind of edit."""
+    I, J, m = (edge_list.spec.num_sources, edge_list.spec.num_destinations,
+               edge_list.spec.num_families)
+    keys = set((edge_list.src * J + edge_list.dst).tolist())
+    order = rng.permutation(edge_list.nnz)
+    dele, upd = order[:2], order[2:2 + n_update]
+    new = []
+    while len(new) < 3:
+        k = int(rng.integers(I)) * J + int(rng.integers(J))
+        if k not in keys and k not in new:
+            new.append(k)
+    new = np.array(new)
+    return InstanceDelta(
+        delete_src=edge_list.src[dele], delete_dst=edge_list.dst[dele],
+        insert_src=new // J, insert_dst=new % J,
+        insert_values=rng.uniform(0.5, 1.0, 3), insert_coeff=rng.uniform(0.5, 1.0, (m, 3)),
+        update_src=edge_list.src[upd], update_dst=edge_list.dst[upd],
+        update_values=edge_list.values[upd] * 1.05,
+        rhs=np.full(m * J, 2.0),
+    )
+
+
+def _scheduler(tenants=1):
+    sched = Scheduler(SPANS_CFG, device="cpu")
+    for t in range(tenants):
+        sched.add_tenant(f"t{t}", BASE)
+    sched.run_cadence({})  # the cold cadence
+    return sched
+
+
+def test_default_tracer_records_nothing(monkeypatch):
+    """A fresh process's tracer is the `NullTracer`, and under it a
+    Maximizer solve and a scheduler cadence make no `Span`, read no clock
+    for a span and record no event; its `span()` is one shared object."""
+    import subprocess
+    import sys
+
+    code = ("from repro_torch import telemetry; "
+            "print(type(telemetry.get_tracer()).__name__)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip() == "NullTracer", out.stderr[-2000:]
+
+    sched = _scheduler()
+    null = NullTracer()
+    telemetry.set_tracer(null)
+
+    class NoSpan:
+        def __init__(self, *a, **k):
+            raise AssertionError("a Span was made with tracing off")
+
+    monkeypatch.setattr(tracing, "Span", NoSpan)
+    Maximizer(MatchingObjective(PACKED), MaximizerConfig(gammas=(1.0,), iters_per_stage=5)).solve()
+    sched.run_cadence({"t0": _mixed_delta(BASE, np.random.default_rng(1))})
+    assert null.events() == [] and null.to_chrome_trace()["traceEvents"] == []
+    assert telemetry.span("a", device=torch.device("cpu"), x=1) is telemetry.span("b")
+    with telemetry.span("a") as sp:
+        sp.set(y=2)
+        assert sp.id is None and telemetry.get_tracer().current() is None
+
+
+def _chain(events: list[dict]) -> dict:
+    """Each event's id -> its event, with every parent id resolving."""
+    by_id = {e["id"]: e for e in events}
+    assert len(by_id) == len(events)
+    assert all(e["parent"] is None or e["parent"] in by_id for e in events)
+    return by_id
+
+
+def _ancestors(e: dict, by_id: dict) -> list[str]:
+    out = []
+    while e["parent"] is not None:
+        e = by_id[e["parent"]]
+        out.append(e["name"])
+    return out
+
+
+# a span of the cadence -> the spans it sits in, innermost first, in run_cadence
+CADENCE_TREE = {
+    "delta_validate": ["ingest", "cadence"],
+    "delta_edits": ["ingest", "cadence"],
+    "delta_plan": ["ingest", "cadence"],
+    "unpacker": ["dispatch", "cadence"],
+    "replay": ["dispatch", "cadence"],
+    "solve": ["solve_fence", "cadence"],
+    "power_iteration": ["solve", "solve_fence", "cadence"],
+    "stage": ["solve", "solve_fence", "cadence"],
+    "solve_wait": ["absorb", "cadence"],
+    "unpack": ["tenant_absorb", "absorb", "cadence"],
+    "drift": ["tenant_absorb", "absorb", "cadence"],
+    "convergence": ["tenant_absorb", "absorb", "cadence"],
+}
+
+
+@pytest.mark.parametrize("tenants", [1, 2])
+def test_cadence_spans_nest_with_parent_ids(tenants):
+    """run_cadence's spans: every span of the table where the work happens,
+    each inside its parents by id and by time, in the order the work runs;
+    the cadence carries its index, the solve its tenants, mode and path."""
+    sched = _scheduler(tenants)
+    tr = Tracer()
+    telemetry.set_tracer(tr)
+    rng = np.random.default_rng(5)
+    sched.run_cadence({f"t{t}": _mixed_delta(BASE, rng) for t in range(tenants)})
+    events = tr.events()
+    by_id = _chain(events)
+    for e in events:
+        if e["name"] in CADENCE_TREE:
+            assert _ancestors(e, by_id) == CADENCE_TREE[e["name"]], e["name"]
+            parent = by_id[e["parent"]]
+            assert parent["ts"] <= e["ts"] and e["ts"] + e["dur"] <= parent["ts"] + parent["dur"] + 1e-3
+    names = [e["name"] for e in events]
+    assert set(CADENCE_TREE) <= set(names)
+    assert names.count("solve") == 1 and names.count("stage") == len(SPANS_CFG.warm_gammas)
+    assert names.count("delta_edits") == names.count("unpacker") == names.count("unpack") == tenants
+    (cad,) = [e for e in events if e["name"] == "cadence"]
+    assert cad["args"] == {"driver": "sync", "index": 0, "tenants": tenants}
+    (solve,) = [e for e in events if e["name"] == "solve"]
+    assert solve["args"] == {"tenants": [f"t{t}" for t in range(tenants)], "mode": "warm",
+                             "batched": tenants > 1}
+    start = {e["name"]: e["ts"] for e in reversed(events)}  # each name's first start
+    order = ["delta_validate", "delta_edits", "delta_plan", "unpacker", "replay", "solve",
+             "power_iteration", "stage", "solve_wait", "unpack", "drift", "convergence"]
+    assert sorted(order, key=start.get) == order
+    assert not any("device_ms" in e["args"] for e in events)  # the CPU has no device clock
+
+
+def test_pipeline_solve_is_parented_to_its_cadence():
+    """In run_pipeline the solves run on the solver thread: each `solve`
+    span is on another thread than its cadence and names that cadence's id
+    as its parent, and the solve's own spans nest under it there."""
+    sched = _scheduler()
+    tr = Tracer()
+    telemetry.set_tracer(tr)
+    rng = np.random.default_rng(6)
+    sched.run_pipeline([{"t0": _mixed_delta(BASE, rng)}, {"t0": _mixed_delta(BASE, rng)}])
+    events = tr.events()
+    by_id = _chain(events)
+    cadences = [e for e in events if e["name"] == "cadence"]
+    solves = [e for e in events if e["name"] == "solve"]
+    assert [c["args"]["index"] for c in cadences] == [0, 1] and len(solves) == 2
+    for cad, solve in zip(cadences, solves):
+        assert solve["parent"] == cad["id"] and solve["tid"] != cad["tid"]
+    for e in events:
+        if e["name"] in ("power_iteration", "stage"):
+            assert _ancestors(e, by_id)[:2] == ["solve", "cadence"]
+        if e["name"] in ("delta_validate", "delta_edits", "delta_plan"):
+            assert _ancestors(e, by_id)[0] in ("pipeline_ingest", "overlap_ingest")
+        if e["name"] in ("unpacker", "replay"):
+            assert _ancestors(e, by_id)[:2] == ["dispatch", "cadence"]
+        if e["name"] in ("unpack", "drift", "convergence"):
+            assert _ancestors(e, by_id)[:3] == ["tenant_absorb", "absorb", "cadence"]
+    assert {"delta_rebucketize"}.isdisjoint(e["name"] for e in events)
+
+
+def test_rebucketize_fallback_has_its_span():
+    from repro_torch.instances import DeltaIngestor as Ingestor
+
+    ing = Ingestor(BASE, row_headroom=4)
+    s = int(BASE.src[0])
+    have = set(BASE.dst[BASE.src == s].tolist())
+    # an edge to every destination: beyond the widest bucket
+    dst = [d for d in range(BASE.spec.num_destinations) if d not in have]
+    rep = ing.apply(InstanceDelta(insert_src=[s] * len(dst), insert_dst=dst,
+                                  insert_values=np.ones(len(dst)),
+                                  insert_coeff=np.ones((BASE.spec.num_families, len(dst)))))
+    names = [e["name"] for e in telemetry.get_tracer().events()]
+    assert rep.rebucketized and names == ["delta_validate", "delta_rebucketize"]
+
+
+@pytest.mark.parametrize("sigma", [False, True])
+def test_agd_engine_spans_match_the_maximizer(sigma):
+    """agd_raw_solve (the cadence path) emits the Maximizer's spans: the
+    power iteration when it runs, then one `stage` per gamma, same args;
+    the batched engine emits them once for all its lanes."""
+    cfg = MaximizerConfig(gammas=(1.0, 0.1, 0.01), iters_per_stage=5)
+    lam0 = torch.zeros(PACKED.dual_dim)
+    Maximizer(MatchingObjective(PACKED), cfg).solve()
+    want = [(e["name"], e["args"]) for e in telemetry.get_tracer().events()]
+    for run in ("solo", "batched"):
+        telemetry.get_tracer().reset()
+        sig = torch.tensor(2.0) if sigma else None
+        if run == "solo":
+            agd_raw_solve(PACKED, lam0, cfg, normalize=False, sigma_sq=sig)
+        else:
+            agd_raw_solve_batched(stack_instances([PACKED, PACKED]), torch.stack([lam0, lam0]),
+                                  cfg, normalize=False,
+                                  sigma_sq=None if sig is None else sig.repeat(2))
+        got = [(e["name"], e["args"]) for e in telemetry.get_tracer().events()]
+        assert got == (want[1:] if sigma else want), run
+
+
+@pytest.mark.parametrize("device", [None, torch.device("cpu")])
+def test_device_clock_adds_nothing_on_the_cpu(device):
+    tr = telemetry.get_tracer()
+    with telemetry.span("outer", device=device, k=1):
+        with telemetry.span("inner", device=device):
+            torch.ones(8).sum()
+    events = tr.events()
+    assert [e["args"] for e in events] == [{}, {"k": 1}]
+    assert not tr._pending
+    assert events[0]["parent"] == events[1]["id"] and events[1]["parent"] is None
+
+
+def test_explicit_parent_and_span_fields():
+    tr = telemetry.get_tracer()
+    with telemetry.span("a") as a:
+        assert tr.current() is a
+        done = threading.Event()
+
+        def other():
+            with telemetry.span("b", parent=a.id):
+                with telemetry.span("c"):
+                    pass
+            done.set()
+
+        threading.Thread(target=other).start()
+        assert done.wait(10)
+    by_name = {e["name"]: e for e in tr.events()}
+    assert by_name["b"]["parent"] == by_name["a"]["id"]
+    assert by_name["c"]["parent"] == by_name["b"]["id"]
+    assert not {"wall0", "depth"} & set(tracing.Span.__slots__)
+    assert tracing.Span.__slots__ == ("name", "args", "t0", "id", "parent")
+
+
+def test_delta_edits_counted_per_op():
+    """`delta_edits_total{op}` grows by each op's count in the delta."""
+    reg = telemetry.get_registry()
+    ing = DeltaIngestor(BASE, row_headroom=4)
+    rng = np.random.default_rng(8)
+    for n_update in (6, 9):
+        before = {op: reg.counter_value("delta_edits_total", op=op) or 0
+                  for op in ("insert", "delete", "update")}
+        ing.apply(_mixed_delta(ing.to_edge_list(), rng, n_update))
+        grown = {op: reg.counter_value("delta_edits_total", op=op) - before[op]
+                 for op in before}
+        assert grown == {"insert": 3, "delete": 2, "update": n_update}
+    assert reg.counter_total("delta_edits_total") == 2 * 5 + 6 + 9
+
+
+def test_span_cost_microbenchmark_runs_and_restores_the_tracer():
+    """`tools/span_readings.py --span-cost`: a row of positive microseconds
+    per round for each case, the caller's tracer installed again after, and
+    the cases' spans recorded into their own tracers, not the caller's."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "span_readings.py"
+    spec = importlib.util.spec_from_file_location("span_readings", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    tr = telemetry.get_tracer()
+    rows = mod.span_cost(2, n=500)
+    assert len(rows) == 2
+    for row in rows:
+        assert set(row) == {"off", "on", "off_device", "on_device"}
+        assert all(v > 0 for v in row.values())
+    assert telemetry.get_tracer() is tr and tr.events() == []
 
 
 # -- convergence traces + stall detection --------------------------------------
