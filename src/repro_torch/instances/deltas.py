@@ -85,6 +85,10 @@ def _slots_of(d: np.ndarray) -> np.ndarray:
     return np.arange(int(d.sum()), dtype=np.int64) - np.repeat(np.cumsum(d) - d, d)
 
 
+# Cells a bucket's gather in `DeltaIngestor._locate` holds at once.
+_LOCATE_CELLS = 1 << 22
+
+
 def _as_1d(a, dtype) -> np.ndarray:
     out = np.asarray([] if a is None else a, dtype=dtype)
     return out.reshape(-1)
@@ -407,9 +411,10 @@ class DeltaIngestor:
         self._pending_dc_sq = 0.0
         # Bumped once per successful apply(); plans are stamped with it.
         self.generation = 0
-        # During apply(): per-bucket set of touched (row, slot) cells, turned
-        # into the ScatterPlan once the mutation completes.  None outside.
-        self._touched: Optional[dict[int, set[tuple[int, int]]]] = None
+        # During apply(): per bucket, arrays of touched cells (row * L + slot),
+        # turned into the ScatterPlan once the mutation completes.  None
+        # outside.
+        self._touched: Optional[dict[int, list[np.ndarray]]] = None
         self._build(inst)
 
     # -- construction -------------------------------------------------------
@@ -733,10 +738,7 @@ class DeltaIngestor:
                         float(delta.insert_values[j]), delta.insert_coeff[:, j],
                     )
                 # 5. cost/coefficient updates
-                for j, (s, d) in enumerate(zip(delta.update_src, delta.update_dst)):
-                    val = None if delta.update_values is None else float(delta.update_values[j])
-                    co = None if delta.update_coeff is None else delta.update_coeff[:, j]
-                    self._update_edge(int(s), int(d), val, co)
+                self._update_edges(delta)
                 # 6. budgets
                 if delta.rhs is not None:
                     self._rhs64[:] = delta.rhs
@@ -759,22 +761,26 @@ class DeltaIngestor:
             generation=self.generation,
         )
 
-    def _record(self, t: int, row: int, slot: int) -> None:
-        """Mark one slab cell as touched (all four arrays at that cell)."""
+    def _record(self, t: int, rows, slots) -> None:
+        """Mark slab cells of bucket t as touched (all four arrays there);
+        `rows` and `slots` broadcast against each other."""
         if self._touched is not None:
-            self._touched.setdefault(t, set()).add((row, slot))
+            cells = np.asarray(rows, np.int64) * self._lengths[t] + np.asarray(slots)
+            self._touched.setdefault(t, []).append(cells.reshape(-1))
 
     def _emit_plan(self, *, rhs_updated: bool) -> ScatterPlan:
         """Gather post-delta values at the touched cells into a ScatterPlan."""
         ops = []
         slab = self._codec.tensor
         for t in sorted(self._touched or ()):
-            cells = self._touched[t]
-            if not cells:
+            # unique cells, row-major: row * L + slot sorts as (row, slot)
+            cells = np.unique(np.concatenate(self._touched[t]))
+            if not cells.size:
                 continue
             b = self._slabs[t]
-            rc = np.array(sorted(cells), np.int32)  # [k, 2] row-major order
-            rows, slots = rc[:, 0], rc[:, 1]
+            L = self._lengths[t]
+            rows = (cells // L).astype(np.int32)
+            slots = (cells % L).astype(np.int32)
             ops.append(
                 BucketScatter.from_cells(
                     bucket=t,
@@ -820,12 +826,34 @@ class DeltaIngestor:
         dd = int(self.deg[s])
         return dd > 0 and bool(np.any(b.idx[int(self.row_of[s]), :dd] == d))
 
+    def _locate(self, src: np.ndarray, dst: np.ndarray):
+        """Slab cells of the edges (src, dst): arrays (bucket, row, slot,
+        found), one entry per edge.  ``found`` is False where the source has
+        no row or its active slots lack the destination; bucket and row are
+        then the source's (-1 without a row) and slot is 0."""
+        t, r, dg = self.bucket_of[src], self.row_of[src], self.deg[src]
+        slot = np.zeros(src.size, np.int64)
+        found = np.zeros(src.size, bool)
+        for b in np.unique(t[t >= 0]).tolist():
+            sel = np.flatnonzero(t == b)
+            L = self._lengths[b]
+            live = np.arange(L)
+            step = max(1, _LOCATE_CELLS // L)
+            for lo in range(0, sel.size, step):
+                e = sel[lo:lo + step]
+                hit = (self._slabs[b].idx[r[e]] == dst[e, None]) & (live < dg[e, None])
+                slot[e] = hit.argmax(1)
+                found[e] = hit.any(1)
+        return t, r, slot, found
+
     def _precheck(self, delta: InstanceDelta) -> None:
         """Reject bad edits BEFORE any mutation, keeping `apply` atomic.
 
         Semantics mirror the apply order (deletes, inserts, updates): an
         insert may re-create an edge deleted by the same delta, and an
-        update may target an edge inserted by the same delta.
+        update may target an edge inserted by the same delta.  Deletes and
+        inserts are checked one by one, updates as arrays; either way the
+        error names the first offending edit in delta order.
         """
         J = self.spec.num_destinations
         deleted: set = set()
@@ -844,19 +872,24 @@ class DeltaIngestor:
             if key not in deleted and self._edge_exists(int(s), int(d)):
                 raise KeyError(f"insert: edge ({s}, {d}) already present")
             inserted.add(key)
-        updated: set = set()
-        for s, d in zip(delta.update_src, delta.update_dst):
-            key = int(s) * J + int(d)
-            if key in updated:
-                # duplicates would make drift accounting order-dependent
-                # (and diverge between the in-place and fallback paths)
-                raise KeyError(f"update: duplicate edge ({s}, {d}) in delta")
-            alive = key in inserted or (
-                key not in deleted and self._edge_exists(int(s), int(d))
-            )
-            if not alive:
-                raise KeyError(f"update: edge ({s}, {d}) not present")
-            updated.add(key)
+        src, dst = delta.update_src, delta.update_dst
+        if not src.size:
+            return
+        key = src * J + dst
+        # duplicates would make drift accounting order-dependent (and
+        # diverge between the in-place and fallback paths)
+        dup = np.ones(key.size, bool)
+        dup[np.unique(key, return_index=True)[1]] = False
+        alive = np.isin(key, delta.insert_src * J + delta.insert_dst) | (
+            ~np.isin(key, delta.delete_src * J + delta.delete_dst)
+            & self._locate(src, dst)[3]
+        )
+        bad = np.flatnonzero(dup | ~alive)
+        if bad.size:
+            e = bad[0]
+            if dup[e]:
+                raise KeyError(f"update: duplicate edge ({src[e]}, {dst[e]}) in delta")
+            raise KeyError(f"update: edge ({src[e]}, {dst[e]}) not present")
 
     def _plan_moves(self, delta: InstanceDelta):
         """Per-source final degrees -> list of (source, target_bucket) moves.
@@ -970,8 +1003,7 @@ class DeltaIngestor:
         b.coeff[:, r, j] = b.coeff[:, r, last]
         b.coeff[:, r, last] = 0
         self.deg[s] = last
-        self._record(t, r, j)
-        self._record(t, r, last)
+        self._record(t, r, np.array([j, last]))
 
     def _release_row(self, s: int) -> None:
         if self.deg[s] != 0:
@@ -998,18 +1030,39 @@ class DeltaIngestor:
         self._pending_dc_sq += value**2
         self._record(t, r, dd)
 
-    def _update_edge(
-        self, s: int, d: int, value: Optional[float], coeff: Optional[np.ndarray]
-    ) -> None:
-        t, r, j = self._slot_of(s, d)
-        b = self._slabs[t]
-        enc = self._codec.enc
-        if value is not None:
-            self._pending_dc_sq += (float(self._codec.dec(b.cost[r, j])) + value) ** 2
-            b.cost[r, j] = enc(-value)
-        if coeff is not None:
-            b.coeff[:, r, j] = enc(coeff)
-        self._record(t, r, j)
+    def _update_edges(self, delta: InstanceDelta) -> None:
+        """Step 5 of `_apply`: every update at once, one scatter per bucket.
+
+        Located after the deletes, moves and inserts, which shift slots and
+        rows.  The drift gains ``(old value - new value)**2`` per update,
+        added one term at a time in delta order, as a per-edit loop adds them.
+        """
+        src, dst = delta.update_src, delta.update_dst
+        if not src.size:
+            return
+        t, r, j, found = self._locate(src, dst)
+        if not found.all():
+            raise RuntimeError("update of a missing edge passed the precheck")
+        values, coeff = delta.update_values, delta.update_coeff
+        enc, dec = self._codec.enc, self._codec.dec
+        terms = np.empty(src.size)
+        for b in np.unique(t).tolist():
+            e = np.flatnonzero(t == b)
+            slab = self._slabs[b]
+            rows, slots = r[e], j[e]
+            if values is not None:
+                # float_power calls the C library's pow, as Python's `x ** 2`
+                # does; `**` on an array squares, which rounds differently
+                old = dec(slab.cost[rows, slots]).astype(np.float64)
+                terms[e] = np.float_power(old + values[e], 2.0)
+                slab.cost[rows, slots] = enc(-values[e])
+            if coeff is not None:
+                slab.coeff[:, rows, slots] = enc(coeff[:, e])
+            self._record(b, rows, slots)
+        if values is not None:
+            # np.add.accumulate adds left to right (np.sum adds in pairs)
+            acc = np.add.accumulate(np.concatenate([[self._pending_dc_sq], terms]))
+            self._pending_dc_sq = float(acc[-1])
 
     def _move_row(self, s: int, t_new: int) -> None:
         """Relocate source s to a free row of bucket t_new (or claim one)."""
@@ -1028,9 +1081,8 @@ class DeltaIngestor:
                 src_arr[r_old, :d] = 0
             bn.coeff[:, r_new, :d] = bo.coeff[:, r_old, :d]
             bo.coeff[:, r_old, :d] = 0
-            for j in range(d):
-                self._record(t_old, r_old, j)
-                self._record(t_new, r_new, j)
+            self._record(t_old, r_old, np.arange(d))
+            self._record(t_new, r_new, np.arange(d))
             self._source_ids[t_old][r_old] = -1
             self._free_rows[t_old].append(r_old)
         self._source_ids[t_new][r_new] = s

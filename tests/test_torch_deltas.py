@@ -328,6 +328,136 @@ def test_state_roundtrip_bit_for_bit(dtype):
         _assert_report(rep, rep_j)
 
 
+# Enough edges that a 2% delta holds hundreds of updates in several buckets.
+WIDE = dict(num_sources=3000, num_destinations=64, avg_degree=6.0, num_families=2, seed=7)
+
+
+def _pair(dtype, spec=WIDE):
+    """A port ingestor and the reference's, on the same generated instance."""
+    ing = DeltaIngestor(generate_matching_instance(MatchingInstanceSpec(**spec)),
+                        row_headroom=4, dtype=dtype)
+    ing_j = JaxIngestor(jax_generate(JaxSpec(**spec)), row_headroom=4, dtype=dtype)
+    return ing, ing_j
+
+
+def _row(ing, s):
+    """Destinations of source s in slot order."""
+    t, r = int(ing.bucket_of[s]), int(ing.row_of[s])
+    return ing._slabs[t].idx[r, : int(ing.deg[s])].astype(np.int64)
+
+
+def _update_heavy_delta(ing, rng, fields):
+    """Updates of ~2% of the edges, in random order, with three that the
+    earlier steps of the same delta make hard to find: an update of an edge
+    it inserts, one of the edge a delete swaps from the last slot into the
+    hole, and one of a source whose row moves to a wider bucket."""
+    cur = ing.to_edge_list()
+    m, J = WIDE["num_families"], WIDE["num_destinations"]
+    deg = ing.deg
+    width = np.asarray(ing._lengths)[ing.bucket_of]  # of each source's row
+    # a delete of slot 0 swaps the last slot into the hole
+    s_swap = int(np.flatnonzero(deg >= 3)[0])
+    row = _row(ing, s_swap)
+    # a source filled to its bucket's width grows by one: its row moves
+    full = np.flatnonzero((deg >= 2) & (deg == width) & (width < ing._lengths[-1]))
+    s_move = int(next(s for s in full if s != s_swap))
+    # a source with room in its row gains an edge in place
+    roomy = np.flatnonzero((deg >= 1) & (deg < width))
+    s_ins = int(next(s for s in roomy if s not in (s_swap, s_move)))
+    ins = [(s, next(d for d in range(J) if d not in set(_row(ing, s).tolist())))
+           for s in (s_move, s_ins)]
+    dels = [(s_swap, int(row[0]))]
+    forced = [(s_swap, int(row[-1])), (s_move, int(_row(ing, s_move)[0]))] + ins
+    taken = {s * J + d for s, d in forced + dels}
+    key = cur.src * J + cur.dst
+    pool = rng.permutation(np.flatnonzero(~np.isin(key, list(taken))))
+    n = max(int(0.02 * key.size), 1) - len(forced)
+    upd = [(int(cur.src[e]), int(cur.dst[e])) for e in pool[:n]] + forced
+    upd = [upd[i] for i in rng.permutation(len(upd))]
+    k = len(upd)
+    return JaxDelta(
+        insert_src=[s for s, _ in ins], insert_dst=[d for _, d in ins],
+        insert_values=rng.uniform(0.1, 5.0, len(ins)),
+        insert_coeff=rng.uniform(0.1, 2.0, (m, len(ins))),
+        delete_src=[s for s, _ in dels], delete_dst=[d for _, d in dels],
+        update_src=[s for s, _ in upd], update_dst=[d for _, d in upd],
+        update_values=rng.uniform(0.1, 5.0, k) if "values" in fields else None,
+        update_coeff=rng.uniform(0.1, 2.0, (m, k)) if "coeff" in fields else None,
+    )
+
+
+@pytest.mark.parametrize("fields", ["values", "coeff", "values+coeff"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_heavy_delta_matches_reference(dtype, fields):
+    """A delta of ~2% updates (the array path) equals the reference's
+    per-edit path exactly: slabs, plan, report, counters and drift; the
+    replay of its plan equals the host slabs."""
+    ing, ing_j = _pair(dtype)
+    delta_j = _update_heavy_delta(ing, np.random.default_rng(3), fields)
+    assert delta_j.update_src.size >= 300
+    dev = device_put_instance(ing.instance(), "cpu")
+    rep, rep_j = ing.apply(convert.delta_from_reference(delta_j)), ing_j.apply(delta_j)
+    assert rep.in_place and rep.moved_rows == 1
+    _assert_report(rep, rep_j)
+    _assert_instance(ing.instance(), ing_j.instance())
+    _assert_same_instance(apply_scatter_plan(dev, rep.plan), ing.instance())
+    got, want = _counters()
+    assert got["counters"] == want["counters"]
+    assert ing.drain_cost_drift() == ing_j.drain_cost_drift()
+    assert ing._free_rows == ing_j._free_rows
+
+
+def _rejected_updates(ing, case):
+    """Updates with two offending edits, the first of kind `case`.  The
+    absent edge points at destination 0 from a row with padding, whose
+    slots past the degree hold index 0 too."""
+    J = WIDE["num_destinations"]
+    cur = ing.to_edge_list()
+    src, dst = cur.src.tolist(), cur.dst.tolist()
+    s0 = src[0]
+    padded = np.flatnonzero((ing.deg >= 1) & (ing.deg < np.asarray(ing._lengths)[ing.bucket_of]))
+    absent = (int(next(s for s in padded if 0 not in _row(ing, s))), 0)
+    ok = list(zip(src[10:20], dst[10:20]))
+    deleted = (src[5], dst[5])
+    if case == "duplicate":
+        upd = ok[:4] + [ok[1]] + [absent]
+    elif case == "deleted":
+        upd = ok[:4] + [deleted] + [ok[1]]
+    elif case == "absent":
+        upd = ok[:4] + [absent] + [deleted]
+    else:  # dst_range
+        upd = ok[:4] + [(s0, J)] + [absent]
+    return JaxDelta(
+        delete_src=[deleted[0]], delete_dst=[deleted[1]],
+        update_src=[s for s, _ in upd], update_dst=[d for _, d in upd],
+        update_values=np.linspace(0.5, 2.0, len(upd)),
+    )
+
+
+@pytest.mark.parametrize("case, error", [("duplicate", KeyError), ("deleted", KeyError),
+                                         ("absent", KeyError), ("dst_range", ValueError)])
+def test_rejected_updates_leave_state_unchanged(case, error):
+    """A bad update raises the reference's exception, naming the same edit,
+    before any mutation: slabs, generation, drift and free rows stay."""
+    ing, ing_j = _pair("float32")
+    warm = _random_delta(ing_j.to_edge_list(), np.random.default_rng(4))
+    ing.apply(convert.delta_from_reference(warm)), ing_j.apply(warm)
+    before = device_put_instance(ing.instance(), "cpu")
+    gen, pending, free = ing.generation, ing._pending_dc_sq, [list(f) for f in ing._free_rows]
+    delta_j = _rejected_updates(ing, case)
+    with pytest.raises(error) as got:
+        ing.apply(convert.delta_from_reference(delta_j))
+    with pytest.raises(error) as want:
+        ing_j.apply(delta_j)
+    assert str(got.value) == str(want.value)
+    _assert_same_instance(ing.instance(), before)
+    _assert_instance(ing.instance(), ing_j.instance())
+    assert (ing.generation, ing._pending_dc_sq, ing._free_rows) == (gen, pending, free)
+    assert ing.drain_cost_drift() == ing_j.drain_cost_drift()
+    got_c, want_c = _counters()
+    assert got_c["counters"] == want_c["counters"]
+
+
 def test_refusals():
     base = generate_matching_instance(MatchingInstanceSpec(**SPEC))
     with pytest.raises(ValueError, match="int8"):
