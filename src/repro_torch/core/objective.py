@@ -41,11 +41,11 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.projections import ProjectionMap, UnitSimplexProjection
 from repro_torch.instances.buckets import (
     Bucket,
     BucketedInstance,
-    _host,
     _quantize_sym,
     dequantize_bucket,
 )
@@ -60,6 +60,8 @@ __all__ = [
     "lane_segment_plan",
     "normalize_rows",
     "normalize_rows_traced",
+    "row_norms_sq",
+    "row_scales",
     "segment_plan",
     "start_vector",
 ]
@@ -402,72 +404,87 @@ class MatchingObjective:
         return norm  # ~ sigma_max^2
 
 
+def row_norms_sq(inst: BucketedInstance, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """||A_r||_2^2 per coupling row r = k*J + j, [m*J] in `dtype`, on the
+    instance's device.
+
+    Each slot's square is taken in fp32 (of the fp32 compute view) and
+    summed in `dtype` by one `binned_segment_sum` over every bucket's slots
+    in turn: a fixed order with no float atomics, and on the CPU bitwise
+    the reference's sequential host sum (buckets, then families, then slots).
+    """
+    m, J = inst.num_families, inst.num_destinations
+    compute = [dequantize_bucket(b) for b in inst.buckets]
+    idx = torch.cat([b.idx.reshape(-1) for b in compute])
+    sq = torch.cat([((b.coeff ** 2) * b.mask[None]).reshape(m, -1) for b in compute], dim=1)
+    return binned_segment_sum(idx, sq.to(dtype), J).reshape(-1)
+
+
+def row_scales(inst: BucketedInstance, eps: float = 1e-30) -> torch.Tensor:
+    """The Jacobi diagonal in fp32 on the instance's device, as the engines
+    apply it inside a solve: D_r = 1/||A_r||_2 (1 where the norm is zero),
+    [m*J]."""
+    norms = torch.sqrt(row_norms_sq(inst, torch.float32))
+    return torch.where(norms > eps, 1.0 / torch.clamp_min(norms, eps), 1.0)
+
+
+def _scaled(inst: BucketedInstance, d: torch.Tensor, requantize: bool) -> BucketedInstance:
+    """A' = D A, b' = D b, the products taken in D's dtype and rounded to the
+    stored dtypes.  int8 coefficients are requantized with fresh scales, or
+    (`requantize=False`) kept as their dequantized fp32 products."""
+    d2 = d.reshape(inst.num_families, inst.num_destinations)
+
+    def scaled_bucket(b: Bucket) -> Bucket:
+        cb = dequantize_bucket(b)
+        coeff = cb.coeff.to(d.dtype) * d2[:, b.idx.long()]
+        if b.coeff_scale is None:
+            return dataclasses.replace(b, coeff=coeff.to(b.coeff.dtype))
+        if requantize:
+            q, scale = _quantize_sym(coeff.float(), dims=(1, 2))
+            return dataclasses.replace(b, coeff=q, coeff_scale=scale)
+        return dataclasses.replace(b, coeff=coeff.float(), cost=cb.cost, mask=cb.mask,
+                                   coeff_scale=None, cost_scale=None)
+
+    rhs = (inst.rhs.to(d.dtype) * d).to(inst.rhs.dtype)
+    return dataclasses.replace(inst, buckets=tuple(scaled_bucket(b) for b in inst.buckets),
+                               rhs=rhs)
+
+
 def normalize_rows_traced(
     inst: BucketedInstance, eps: float = 1e-30
 ) -> tuple[BucketedInstance, torch.Tensor]:
-    """Jacobi row normalization on the instance's device (port of the
-    reference's traced form, which the engines run inside every solve).
+    """Jacobi row normalization in fp32, as the engines run it inside every
+    solve (port of the reference's traced form).
 
-    Same math as `normalize_rows` (A' = D A, b' = D b, D_r = 1/||A_r||_2),
-    in torch ops: the row norms by one fixed-order segment sum per bucket,
-    the scaling by a gather.  bf16 coefficients are scaled in fp32 and cast
-    back; int8 slabs stay dequantized fp32 (requantizing would need
-    data-dependent scales).  The formulation rides along.  Returns the
-    scaled instance and D as a [m*J] tensor.
+    `normalize_rows`' steps with the row norms, D and the products in fp32;
+    bf16 coefficients are cast back, and int8 slabs stay dequantized fp32
+    (requantizing would need data-dependent scales).  The formulation rides
+    along.  Returns the scaled instance and D as a [m*J] fp32 tensor.
     """
-    m, J = inst.num_families, inst.num_destinations
-    compute = tuple(dequantize_bucket(b) for b in inst.buckets)
-    norms_sq = torch.zeros((m, J), dtype=torch.float32, device=inst.device)
-    for b in compute:
-        norms_sq = norms_sq + binned_segment_sum(b.idx, (b.coeff ** 2) * b.mask[None], J)
-    norms = torch.sqrt(norms_sq)
-    d2 = torch.where(norms > eps, 1.0 / torch.clamp_min(norms, eps), 1.0)
-
-    def scaled_bucket(b: Bucket, cb: Bucket) -> Bucket:
-        coeff = cb.coeff * d2[:, b.idx.long()]
-        if b.coeff_scale is None:
-            return dataclasses.replace(b, coeff=coeff.to(b.coeff.dtype))
-        return dataclasses.replace(b, coeff=coeff, cost=cb.cost, mask=cb.mask,
-                                   coeff_scale=None, cost_scale=None)
-
-    buckets = tuple(scaled_bucket(b, cb) for b, cb in zip(inst.buckets, compute))
-    d = d2.reshape(-1)
-    return dataclasses.replace(inst, buckets=buckets, rhs=inst.rhs * d), d
+    d = row_scales(inst, eps)
+    return _scaled(inst, d, requantize=False), d
 
 
 def normalize_rows(
     inst: BucketedInstance, eps: float = 1e-30
-) -> tuple[BucketedInstance, np.ndarray]:
+) -> tuple[BucketedInstance, torch.Tensor]:
     """Jacobi preconditioning / row normalization (paper §6, Appendix B.2).
 
     Returns (scaled instance with A' = D A, b' = D b) and the diagonal D as a
-    [m*J] vector, D_r = 1/||A_r||_2 (rows with zero norm keep D_r = 1).  The
-    feasible set is unchanged; duals map back as lam_original = D lam'.
-    Host-side numpy transform, as the reference runs it, once at instance
-    build time; the scaled slabs return to the instance's device.
+    [m*J] float64 tensor, D_r = 1/||A_r||_2 (rows with zero norm keep
+    D_r = 1).  The feasible set is unchanged; duals map back as
+    lam_original = D lam'.  Runs once at instance build time on the
+    instance's device (span ``normalize``): the row norms summed in float64
+    (`row_norms_sq`; only their m*J square roots on the host), each
+    coefficient times its row's D in float64 and cast to the slab dtype
+    (int8 requantized with fresh per-bucket scales), the rhs likewise to
+    fp32.  On the CPU the result is the reference's host transform bit for
+    bit.
     """
-    m, J = inst.num_families, inst.num_destinations
-    dev = inst.device
-    norms = np.sqrt(inst.row_norms_sq())
-    d = np.where(norms > eps, 1.0 / np.maximum(norms, eps), 1.0)
-    d2 = d.reshape(m, J)
-    buckets = []
-    for b in inst.buckets:
-        idx = _host(b.idx)
-        scale = d2[:, idx]  # [m, n, L]
-        if b.coeff_scale is not None:
-            # int8: dequantize, scale in fp32, requantize with fresh scales
-            coeff_f32 = _host(b.coeff).astype(np.float32) * _host(b.coeff_scale)
-            q, new_scale = _quantize_sym(
-                (coeff_f32 * scale).astype(np.float32), axes=(1, 2)
-            )
-            buckets.append(dataclasses.replace(
-                b, coeff=torch.from_numpy(q).to(dev),
-                coeff_scale=torch.from_numpy(new_scale.astype(np.float32)).to(dev),
-            ))
-            continue
-        coeff = torch.from_numpy(_host(b.coeff) * scale).to(b.coeff.dtype)
-        buckets.append(dataclasses.replace(b, coeff=coeff.to(dev)))
-    rhs = torch.from_numpy(_host(inst.rhs) * d).to(inst.rhs.dtype)
-    scaled = dataclasses.replace(inst, buckets=tuple(buckets), rhs=rhs.to(dev))
-    return scaled, d
+    with telemetry.span("normalize", device=inst.device):
+        # the m*J norms' square roots in numpy: torch's CPU float64 sqrt is
+        # not correctly rounded, and D has to be the host transform's
+        norms = np.sqrt(row_norms_sq(inst, torch.float64).cpu().numpy())
+        d = np.where(norms > eps, 1.0 / np.maximum(norms, eps), 1.0)
+        d = torch.from_numpy(d).to(inst.device)
+        return _scaled(inst, d, requantize=True), d

@@ -9,13 +9,15 @@ bucketing in one structure).  Layout per bucket (n rows = sources, L = width):
   cost  [n, L]        minimisation cost c_ij               (0 for padding)
   mask  [n, L]        1 for real edges, 0 for padding
 
-Packing is host-side numpy, step for step as the reference does it, so the
-same edge list gives bit-identical slabs in both packages; the slabs move to
-the requested device at the end.  Slab storage is float32 (default),
-bfloat16 or int8.  numpy has no bfloat16, so narrow slabs are torch tensors
-from the point of conversion on.  int8 slabs carry symmetric per-bucket
-scales, `coeff_scale [m, 1, 1]` and `cost_scale [1, 1]` (fp32); value =
-q * scale.  The rhs and the duals stay fp32 for every slab dtype.
+Packing runs on the device of the edge list's arrays (torch tensors, or
+numpy arrays moved to `device` first) in a handful of whole-array torch
+operations, with no Python loop over sources; the slabs are those of the
+reference's host numpy packing bit for bit, so the same edge list gives
+identical slabs in both packages.  Slab storage is float32 (default),
+bfloat16 or int8; slabs are packed in fp32 and converted per bucket.  int8
+slabs carry symmetric per-bucket scales, `coeff_scale [m, 1, 1]` and
+`cost_scale [1, 1]` (fp32); value = q * scale.  The rhs and the duals stay
+fp32 for every slab dtype.
 
 The reference keeps the packing bookkeeping (needed by `unpack_primal`) in a
 registry keyed by `id()`; here it rides on the instance as `pack_info`.
@@ -29,6 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.device import resolve_device
 from repro_torch.instances.generator import EdgeListInstance
 
@@ -153,15 +156,11 @@ class BucketedInstance:
         return self.buckets[0].slab_dtype
 
     def row_norms_sq(self) -> np.ndarray:
-        """||A_r||_2^2 per coupling row r = k*J + j (for Jacobi / Lemma B.1)."""
-        m, J = self.num_families, self.num_destinations
-        out = np.zeros(m * J)
-        for b in self.buckets:
-            idx = _host(b.idx)
-            coeff, _, mask = _host_dequant(b)
-            for k in range(m):
-                np.add.at(out, k * J + idx.ravel(), (coeff[k] ** 2 * mask).ravel())
-        return out
+        """||A_r||_2^2 per coupling row r = k*J + j (for Jacobi / Lemma B.1),
+        float64, summed in slot order (`core.objective.row_norms_sq`)."""
+        from repro_torch.core.objective import row_norms_sq
+
+        return row_norms_sq(self, torch.float64).cpu().numpy()
 
     def to(self, device) -> "BucketedInstance":
         return dataclasses.replace(
@@ -171,7 +170,7 @@ class BucketedInstance:
         )
 
 
-# -- host-side helpers --------------------------------------------------------
+# -- helpers -----------------------------------------------------------------
 
 
 def _host(t) -> np.ndarray:
@@ -184,61 +183,44 @@ def _host(t) -> np.ndarray:
     return t.numpy()
 
 
-def _host_dequant(b: Bucket) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(coeff, cost, mask) of one bucket as fp32 numpy arrays (host side)."""
-    coeff, cost, mask = _host(b.coeff), _host(b.cost), _host(b.mask)
-    if b.slab_dtype == "float32":
-        return coeff, cost, mask
-    coeff = coeff.astype(np.float32)
-    cost = cost.astype(np.float32)
-    mask = mask.astype(np.float32)
-    if b.coeff_scale is not None:
-        coeff = coeff * _host(b.coeff_scale).astype(np.float32)
-    if b.cost_scale is not None:
-        cost = cost * _host(b.cost_scale).astype(np.float32)
-    return coeff, cost, mask
-
-
-def _quantize_sym(values: np.ndarray, axes: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetric int8 quantization over `axes`: (q, scale) with q = round(v/s)
-    clipped to [-127, 127] and s = max|v| / 127 (1/127 when all-zero, so the
-    padding invariant q == 0 on mask-zero slots is preserved exactly)."""
-    amax = np.abs(values).max(axis=axes, keepdims=True).astype(np.float32)
-    scale = np.where(amax > 0, amax, 1.0) / _INT8_QMAX
-    q = np.clip(np.rint(values / scale), -_INT8_QMAX, _INT8_QMAX)
-    return q.astype(np.int8), scale
+def _quantize_sym(values: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of fp32 `values` over `dims`: (q, scale)
+    with q = round(v/s) clipped to [-127, 127] and s = max|v| / 127 (1/127
+    when all-zero, so the padding invariant q == 0 on mask-zero slots is
+    preserved exactly).  fp32 arithmetic, rounding half to even: the
+    reference's numpy steps, on the values' device."""
+    amax = values.abs().amax(dim=dims, keepdim=True)
+    scale = torch.where(amax > 0, amax, 1.0) / _INT8_QMAX
+    q = torch.clamp(torch.round(values / scale), -_INT8_QMAX, _INT8_QMAX)
+    return q.to(torch.int8), scale
 
 
 def convert_bucket(b: Bucket, dtype) -> Bucket:
-    """Conversion of one fp32 bucket to a storage dtype (host arithmetic).
+    """Conversion of one fp32 bucket to a storage dtype, on its device.
 
     bf16: plain round-to-nearest-even cast of coeff/cost/mask.  int8:
     symmetric per-bucket quantization (per family for coeff) with fp32
     scales; mask stores its exact 0/1 pattern as int8.  fp32 -> unchanged.
-    The result lives on the input bucket's device.
     """
     name = slab_dtype_name(resolve_slab_dtype(dtype))
     if name == b.slab_dtype and b.coeff_scale is None:
         return b
     if b.slab_dtype != "float32":
         raise ValueError("convert_bucket expects an fp32 source bucket")
-    device = b.idx.device
-    coeff, cost, mask = _host(b.coeff), _host(b.cost), _host(b.mask)
     if name == "bfloat16":
-        bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).to(device)
+        bf16 = lambda t: t.to(torch.bfloat16)
         return dataclasses.replace(
-            b, coeff=bf16(coeff), cost=bf16(cost), mask=bf16(mask)
+            b, coeff=bf16(b.coeff), cost=bf16(b.cost), mask=bf16(b.mask)
         )
-    q_coeff, coeff_scale = _quantize_sym(coeff, axes=(1, 2))
-    q_cost, cost_scale = _quantize_sym(cost[None], axes=(1, 2))
-    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    q_coeff, coeff_scale = _quantize_sym(b.coeff, dims=(1, 2))
+    q_cost, cost_scale = _quantize_sym(b.cost[None], dims=(1, 2))
     return dataclasses.replace(
         b,
-        coeff=dev(q_coeff),
-        cost=dev(q_cost[0]),
-        mask=dev(mask.astype(np.int8)),
-        coeff_scale=dev(coeff_scale.astype(np.float32)),
-        cost_scale=dev(cost_scale[0].astype(np.float32)),
+        coeff=q_coeff,
+        cost=q_cost[0],
+        mask=b.mask.to(torch.int8),
+        coeff_scale=coeff_scale,
+        cost_scale=cost_scale[0],
     )
 
 
@@ -267,6 +249,12 @@ def _pad_rows(n: int, multiple: int) -> int:
     return int(math.ceil(max(n, 1) / multiple) * multiple)
 
 
+def _on(a, device, dtype: torch.dtype) -> torch.Tensor:
+    """`a` (a tensor or a numpy array) as a `dtype` tensor on `device`; the
+    tensor itself where it is one already."""
+    return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+
 def bucketize(
     inst: EdgeListInstance,
     *,
@@ -279,21 +267,51 @@ def bucketize(
     """Pack an edge list into the bucketed-ELL layout on `device`.
 
     Edges in ``inst`` must be sorted by (source, destination), as the
-    generator guarantees.  ``shard_multiple`` pads every bucket's row count
-    to a multiple of it.  ``dtype`` is the slab storage dtype; slabs are
-    packed in fp32 and converted per bucket, and the rhs stays fp32.
+    generator guarantees; its arrays may be numpy arrays or tensors, and are
+    moved to `device` first (no copy where they are there already).
+    ``shard_multiple`` pads every bucket's row count to a multiple of it.
+    ``dtype`` is the slab storage dtype; slabs are packed in fp32 and
+    converted per bucket, and the rhs stays fp32.
+
+    The packing (span ``pack``, the move excluded) is whole-array work on
+    `device`: the degrees by `bincount`, each source's bucket by
+    `searchsorted` over the widths, its row by a stable sort on the bucket,
+    and each bucket's slabs by one gather of its rows' edges (edge = the
+    row's first edge + slot, live where slot < degree).  Sources keep
+    ascending id order within a bucket, so the slabs and `pack_info` are the
+    reference's.  Counter ``packed_slots_total{bucket=<width>}``: the slots
+    written, padding included.
     """
     dev = resolve_device(device)
     slab_dt = resolve_slab_dtype(dtype)
     spec = inst.spec
     I, J, m = spec.num_sources, spec.num_destinations, spec.num_families
+    src = _on(inst.src, dev, torch.int64)
+    dst = _on(inst.dst, dev, torch.int64)
+    values = _on(inst.values, dev, torch.float64)
+    coeff = _on(inst.coeff, dev, torch.float64).reshape(m, -1)
+    rhs = _on(inst.rhs, dev, torch.float64)
+    with telemetry.span("pack", device=dev):
+        buckets, info = _pack(src, dst, values, coeff, I, shard_multiple, min_length,
+                              max_length, slab_dt)
+    return BucketedInstance(
+        buckets=buckets,
+        rhs=rhs.to(rhs_dtype(slab_dt)),
+        num_sources=I,
+        num_destinations=J,
+        num_families=m,
+        pack_info=info,
+    )
 
-    deg = np.bincount(inst.src, minlength=I)
-    active = np.flatnonzero(deg)  # sources with at least one edge
-    if active.size == 0:
+
+def _pack(src, dst, values, coeff, I, shard_multiple, min_length, max_length, slab_dt):
+    """`bucketize`'s work on the edge list's device: (buckets, pack info)."""
+    dev = src.device
+    deg = torch.bincount(src, minlength=I)
+    active = torch.nonzero(deg).reshape(-1)  # sources with an edge, ascending
+    if active.numel() == 0:
         raise ValueError("instance has no edges")
-    starts = np.zeros(I + 1, dtype=np.int64)
-    np.cumsum(deg, out=starts[1:])
+    starts = torch.cumsum(deg, 0) - deg
 
     max_deg = int(deg.max())
     cap = _next_pow2(max_deg)
@@ -307,49 +325,41 @@ def bucketize(
     while L <= cap:
         lengths.append(L)
         L *= 2
-    # bucket index per active source: smallest L >= degree, but >= min length
-    b_of = np.searchsorted(np.asarray(lengths), deg[active])
+    # bucket of each active source: smallest L >= degree, but >= min length;
+    # its rows in ascending source order (a stable sort on the bucket)
+    b_of = torch.searchsorted(torch.tensor(lengths, device=dev), deg[active])
+    grouped = active[torch.argsort(b_of, stable=True)]
+    counts = torch.bincount(b_of, minlength=len(lengths)).tolist()
 
+    reg = telemetry.get_registry()
     buckets: list[Bucket] = []
     info = PackInfo(source_ids=[], edge_starts=[], degrees=[])
-    for t, Lt in enumerate(lengths):
-        rows_src = active[b_of == t]
-        n = _pad_rows(rows_src.size, shard_multiple)
-        idx = np.zeros((n, Lt), dtype=np.int32)
-        coeff = np.zeros((m, n, Lt), dtype=np.float32)
-        cost = np.zeros((n, Lt), dtype=np.float32)
-        mask = np.zeros((n, Lt), dtype=np.float32)
-        d = deg[rows_src]
-        st = starts[rows_src]
-        if rows_src.size:
-            r = np.repeat(np.arange(rows_src.size), d)
-            o = np.concatenate([np.arange(k) for k in d]) if d.size else np.empty(0, int)
-            e = np.repeat(st, d) + o
-            idx[r, o] = inst.dst[e]
-            cost[r, o] = inst.cost[e]
-            mask[r, o] = 1.0
-            for k in range(m):
-                coeff[k, r, o] = inst.coeff[k, e]
-        host = Bucket(
-            idx=torch.from_numpy(idx), coeff=torch.from_numpy(coeff),
-            cost=torch.from_numpy(cost), mask=torch.from_numpy(mask), length=Lt,
-        )
-        buckets.append(convert_bucket(host, slab_dt).to(dev))
-        sid = np.full(n, -1, dtype=np.int64)
-        sid[: rows_src.size] = rows_src
-        info.source_ids.append(sid)
-        info.edge_starts.append(st)
-        info.degrees.append(d)
-
-    rhs = torch.from_numpy(inst.rhs.astype(np.float32)).to(rhs_dtype(slab_dt))
-    return BucketedInstance(
-        buckets=tuple(buckets),
-        rhs=rhs.to(dev),
-        num_sources=I,
-        num_destinations=J,
-        num_families=m,
-        pack_info=info,
-    )
+    for Lt, rows_src in zip(lengths, torch.split(grouped, counts)):
+        k = rows_src.numel()
+        n = _pad_rows(k, shard_multiple)
+        idx = torch.zeros((n, Lt), dtype=torch.int32, device=dev)
+        slab_coeff = torch.zeros((coeff.shape[0], n, Lt), dtype=torch.float32, device=dev)
+        slab_cost = torch.zeros((n, Lt), dtype=torch.float32, device=dev)
+        mask = torch.zeros((n, Lt), dtype=torch.float32, device=dev)
+        d, st = deg[rows_src], starts[rows_src]
+        if k:
+            slot = torch.arange(Lt, device=dev)
+            live = slot < d[:, None]  # [k, L]
+            e = torch.where(live, st[:, None] + slot, 0)  # padding reads edge 0
+            idx[:k] = torch.where(live, dst[e], 0)
+            slab_cost[:k] = torch.where(live, -values[e], 0.0)  # cost = -value
+            slab_coeff[:, :k] = torch.where(live, coeff[:, e], 0.0)
+            mask[:k] = live
+            del live, e
+        fp32 = Bucket(idx=idx, coeff=slab_coeff, cost=slab_cost, mask=mask, length=Lt)
+        buckets.append(convert_bucket(fp32, slab_dt))
+        reg.inc("packed_slots_total", n * Lt, bucket=Lt)
+        sid = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        sid[:k] = rows_src
+        info.source_ids.append(sid.cpu().numpy())
+        info.edge_starts.append(st.cpu().numpy())
+        info.degrees.append(d.cpu().numpy())
+    return tuple(buckets), info
 
 
 def pack_single_slab(
@@ -357,7 +367,7 @@ def pack_single_slab(
     device="cuda",
 ) -> BucketedInstance:
     """The paper's `batching=False` baseline: one slab of width next_pow2(s_max)."""
-    deg = np.bincount(inst.src, minlength=inst.spec.num_sources)
+    deg = torch.bincount(torch.as_tensor(inst.src), minlength=inst.spec.num_sources)
     width = _next_pow2(int(deg.max()))
     return bucketize(
         inst, shard_multiple=shard_multiple, min_length=width, dtype=dtype,
@@ -381,20 +391,20 @@ def pack_source_ids(packed: BucketedInstance) -> list[np.ndarray]:
 def unpack_primal(
     packed: BucketedInstance, x_slabs: Sequence[torch.Tensor | np.ndarray]
 ) -> np.ndarray:
-    """Scatter per-bucket primal slabs back to edge order (sorted by src,dst)."""
+    """Scatter per-bucket primal slabs back to edge order (sorted by src,dst),
+    float64 on the host; the scatter runs on the slabs' device."""
     info = packed.pack_info
     if info is None:
         raise KeyError("unpack_primal: packing info not found for this instance")
     nnz = int(sum(d.sum() for d in info.degrees))
-    x_edges = np.zeros(nnz)
-    for bi, slab in enumerate(x_slabs):
-        slab = _host(slab)
-        d = info.degrees[bi]
-        st = info.edge_starts[bi]
+    slabs = [torch.as_tensor(x) for x in x_slabs]
+    dev = slabs[0].device if slabs else torch.device("cpu")
+    x_edges = torch.zeros(nnz, dtype=torch.float64, device=dev)
+    for slab, d, st in zip(slabs, info.degrees, info.edge_starts):
         if d.size == 0:
             continue
-        r = np.repeat(np.arange(d.size), d)
-        o = np.concatenate([np.arange(k) for k in d])
-        e = np.repeat(st, d) + o
-        x_edges[e] = slab[r, o]
-    return x_edges
+        d, st = torch.from_numpy(d).to(dev), torch.from_numpy(st).to(dev)
+        slot = torch.arange(slab.shape[1], device=dev)
+        live = slot < d[:, None]  # the rows' real slots, row by row
+        x_edges[(st[:, None] + slot)[live]] = slab[: d.numel()][live].double()
+    return x_edges.cpu().numpy()

@@ -18,9 +18,10 @@ Signs are adjusted to the minimisation convention: the solver receives
 c = -value so that minimising c'x maximises matched value.
 
 Generation is host-side numpy (this is the data pipeline, not the solver); the
-output is an edge list that `buckets.bucketize` packs into bucketed-ELL slabs.
-This module is a line-for-line copy of `repro.instances.generator`: the same
-spec and seed give the same edge list in both packages.
+output is an edge list that `buckets.bucketize` packs into bucketed-ELL slabs,
+on the host or, moved there first (`EdgeListInstance.to`), on a card.
+Its generation is a line-for-line copy of `repro.instances.generator`: the
+same spec and seed give the same edge list in both packages.
 """
 from __future__ import annotations
 
@@ -87,6 +88,16 @@ class EdgeListInstance:
 
     def degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.spec.num_sources)
+
+    def to(self, device) -> "EdgeListInstance":
+        """This edge list with its arrays as torch tensors on `device` (one
+        copy each), for `buckets.bucketize` to pack where they are."""
+        import torch
+
+        put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+        return dataclasses.replace(self, src=put(self.src), dst=put(self.dst),
+                                   values=put(self.values), coeff=put(self.coeff),
+                                   rhs=put(self.rhs))
 
     def to_dense(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Materialise (A, b, c) densely — tests/small instances only.

@@ -129,9 +129,11 @@ def _refuse(ap: argparse.ArgumentParser, args) -> None:
 def run(args) -> SolveRun:
     """Generate, pack, normalize and solve as the arguments say.
 
-    With `args.shards > 1` this process must be one of a process group of
-    that size (`launch.dist.setup`); every process builds the whole
-    instance on the host and keeps its own rows on its device.
+    On one device the edge list is generated on the host and packed and
+    Jacobi-scaled on the device.  With `args.shards > 1` this process must
+    be one of a process group of that size (`launch.dist.setup`); every
+    process builds the whole instance on the host and keeps its own rows on
+    its device.
     """
     shards = args.shards
     if shards > 1:
@@ -149,8 +151,12 @@ def run(args) -> SolveRun:
     )
     t0 = time.perf_counter()
     edges = generate_matching_instance(spec)
-    packed = bucketize(edges, shard_multiple=shards, dtype=args.slab_dtype,
+    # one card packs and scales on the card; a sharded solve packs every row
+    # on the host and keeps its own rows on its device
+    on = edges.to(device) if shards == 1 else edges
+    packed = bucketize(on, shard_multiple=shards, dtype=args.slab_dtype,
                        device=device if shards == 1 else "cpu")
+    del on
     scaled, _ = normalize_rows(packed)
     comp = scenario_formulation(args.formulation, args.formulation_param).compile(scaled)
     setup_s = time.perf_counter() - t0

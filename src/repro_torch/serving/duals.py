@@ -60,9 +60,9 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core.objective import (
     MatchingObjective,
-    binned_segment_sum,
     gather_at_lam,
     inv_gamma,
+    row_scales,
 )
 from repro_torch.core.projections import UnitSimplexProjection
 from repro_torch.formulation.spec import lower_spec
@@ -83,16 +83,9 @@ __all__ = [
 
 def _descale_duals(inst: BucketedInstance, lam: torch.Tensor) -> torch.Tensor:
     """D lam' over the RAW slabs — the inverse of `normalize_rows_traced`:
-    the same per-row norms (the same fixed-order segment sums, the same
-    eps) the normalized solve applied on the device."""
-    m, J = inst.num_families, inst.num_destinations
-    norms_sq = torch.zeros((m, J), dtype=torch.float32, device=inst.device)
-    for b in inst.buckets:
-        cb = dequantize_bucket(b)
-        norms_sq = norms_sq + binned_segment_sum(cb.idx, (cb.coeff ** 2) * cb.mask[None], J)
-    norms = torch.sqrt(norms_sq)
-    d2 = torch.where(norms > 1e-30, 1.0 / torch.clamp_min(norms, 1e-30), 1.0)
-    return lam * d2.reshape(-1)
+    the same fp32 D (`row_scales`) the normalized solve applied on the
+    device."""
+    return lam * row_scales(inst)
 
 
 def compute_lam_eff(

@@ -21,8 +21,10 @@ Four pieces, one import:
     and Prometheus text exposition.
 
 Instrumentation sites: `instances.deltas` (delta counts, scatter bytes,
-rejections; the ingest's phase spans), `service.engine` (solver cache hits
-and first calls), `service.scheduler` and `service.session` (cadence,
+rejections; the ingest's phase spans), `instances.buckets` (the `pack`
+span, slots packed), `core.objective` (the `normalize` span),
+`service.engine` (solver cache hits and first calls), `service.scheduler`
+and `service.session` (cadence,
 solve, replay and absorb spans), `engines.agd`, `core.maximizer` and
 `core.sharding` (power-iteration and stage spans),
 `formulation.formulation` (compile span and counters).  The registry and

@@ -509,8 +509,12 @@ def test_rebucketize_fallback_has_its_span():
     rep = ing.apply(InstanceDelta(insert_src=[s] * len(dst), insert_dst=dst,
                                   insert_values=np.ones(len(dst)),
                                   insert_coeff=np.ones((BASE.spec.num_families, len(dst)))))
-    names = [e["name"] for e in telemetry.get_tracer().events()]
-    assert rep.rebucketized and names == ["delta_validate", "delta_rebucketize"]
+    events = telemetry.get_tracer().events()
+    names = [e["name"] for e in events]
+    # the ingestor's first pack, then the fallback's re-pack inside its span
+    assert rep.rebucketized and names == ["pack", "delta_validate", "pack",
+                                          "delta_rebucketize"]
+    assert events[2]["parent"] == events[3]["id"] and events[0]["parent"] is None
 
 
 @pytest.mark.parametrize("sigma", [False, True])
