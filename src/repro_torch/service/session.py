@@ -214,9 +214,11 @@ class SolveSession:
         self._stall = StallDetector()
         self.last_convergence: Optional[ConvergenceTrace] = None
         self.lam_prev: Optional[torch.Tensor] = None
-        # previous primal in edge space: (sorted edge keys, values) — robust
-        # to row relocations and re-bucketizes, unlike slab positions
-        self.prev_primal: Optional[tuple[np.ndarray, np.ndarray]] = None
+        # previous primal in edge space: (sorted int64 edge keys, float64
+        # values) — robust to row relocations and re-bucketizes, unlike slab
+        # positions.  Numpy arrays on the CPU; on a card, tensors there, and
+        # the drift is metered there (`_edge_drift_device`).
+        self.prev_primal: Optional[tuple] = None
         self.cadence = 0
         self.last_ingest: Optional[DeltaReport] = None
         self.last_report: Optional[dict[str, Any]] = None
@@ -590,12 +592,21 @@ class SolveSession:
             "sla_rel": self.config.drift_sla_rel,
             "sla_ok": None,
         }
+        on_card = self.device.type == "cuda"
         with telemetry.span("unpack"):
             keys, x = unpack(res.x_slabs)
+            if on_card:
+                keys, x = (torch.from_numpy(a).to(self.device) for a in (keys, x))
         if self.prev_primal is not None:
             with telemetry.span("drift"):
-                drift = _edge_drift(self.prev_primal, (keys, x))
-                x_norm = float(np.linalg.norm(x))
+                if on_card:
+                    drift, x_norm, counts = _edge_drift_device(self.prev_primal, (keys, x))
+                else:
+                    drift, counts = _edge_drift(self.prev_primal, (keys, x))
+                    x_norm = float(np.linalg.norm(x))
+                reg = telemetry.get_registry()
+                for kind, n in zip(("matched", "new", "gone"), counts):
+                    reg.inc("drift_edges_total", n, kind=kind)
                 report["drift_l2"] = drift
                 report["drift_rel"] = drift / max(x_norm, 1e-12)
                 resized = (
@@ -810,8 +821,8 @@ class SolveSession:
         if self.lam_prev is not None:
             arrays["lam_prev"] = self.lam_prev.detach().cpu().numpy()
         if self.prev_primal is not None:
-            arrays["primal_keys"] = self.prev_primal[0].copy()
-            arrays["primal_vals"] = self.prev_primal[1].copy()
+            for name, a in zip(("primal_keys", "primal_vals"), self.prev_primal):
+                arrays[name] = a.cpu().numpy() if isinstance(a, torch.Tensor) else a.copy()
         return arrays, meta
 
     @classmethod
@@ -843,11 +854,12 @@ class SolveSession:
             torch.from_numpy(np.asarray(arrays["lam_prev"], np.float32).copy()).to(self.device)
             if meta["has_lam"] else None
         )
-        self.prev_primal = (
-            (arrays["primal_keys"].copy(), arrays["primal_vals"].copy())
-            if meta["has_primal"]
-            else None
-        )
+        self.prev_primal = None
+        if meta["has_primal"]:
+            keys, vals = arrays["primal_keys"].copy(), arrays["primal_vals"].copy()
+            if self.device.type == "cuda":
+                keys, vals = (torch.from_numpy(a).to(self.device) for a in (keys, vals))
+            self.prev_primal = (keys, vals)
         self.cadence = int(meta["cadence"])
         self.last_ingest = None
         self.last_report = None
@@ -904,12 +916,14 @@ def _slab_bytes_saved(inst) -> int:
 
 def _edge_drift(
     prev: tuple[np.ndarray, np.ndarray], cur: tuple[np.ndarray, np.ndarray]
-) -> float:
-    """||x_t - x_{t-1}||_2 over the union of edges (missing edges count 0).
+) -> tuple[float, tuple[int, int, int]]:
+    """||x_t - x_{t-1}||_2 over the union of edges (missing edges count 0),
+    and the edges (matched, new, gone) it summed over.
 
     Both inputs are (sorted keys, values) from `DeltaIngestor.unpack_primal`;
     inserted/deleted edges contribute their full allocation to the drift —
-    exactly the downstream churn a drift SLA is about.
+    exactly the downstream churn a drift SLA is about.  A CPU session's form,
+    bitwise the reference's.
     """
     pk, px = prev
     ck, cx = cur
@@ -925,6 +939,43 @@ def _edge_drift(
         else:
             gone = np.ones(pk.size, bool)
         sq += float(np.sum(px[gone] ** 2))  # edges removed this cadence
+        matched = int(np.count_nonzero(hit))
+        counts = (matched, ck.size - matched, int(np.count_nonzero(gone)))
     else:
         sq = float(np.sum(cx**2))
-    return float(np.sqrt(sq))
+        counts = (0, ck.size, 0)
+    return float(np.sqrt(sq)), counts
+
+
+def _edge_drift_device(
+    prev: tuple[torch.Tensor, torch.Tensor], cur: tuple[torch.Tensor, torch.Tensor]
+) -> tuple[float, float, tuple[int, int, int]]:
+    """`_edge_drift` on the tensors' device, with ||x_t||: (drift, ||x_t||,
+    (matched, new, gone)).
+
+    One search of the current keys in the previous ones; the previous edges
+    that still exist are marked by a scatter of the hits, so no second search
+    is needed (the keys are unique).  The float64 parts are the same numbers
+    as `_edge_drift`'s, summed in another order; no boolean indexing, so the
+    one host read at the end is the only wait for the device.
+    """
+    pk, px = prev
+    ck, cx = cur
+    zero, cx2 = cx.new_zeros(()), cx * cx
+    if pk.numel():
+        pos = torch.searchsorted(pk, ck).clamp_(max=pk.numel() - 1)
+        hit = pk[pos] == ck
+        found = torch.zeros(pk.numel(), dtype=torch.int32, device=pk.device)
+        matched = found.index_add_(0, pos, hit.to(torch.int32)) > 0
+        changed = torch.where(hit, (cx - px[pos]) ** 2, zero).sum()
+        new = torch.where(hit, zero, cx2).sum()  # edges new this cadence
+        gone = torch.where(matched, zero, px * px).sum()  # edges removed this cadence
+        n_hit, n_gone = hit.sum(), pk.numel() - matched.sum()
+    else:
+        changed, new, gone = zero, cx2.sum(), zero
+        n_hit = n_gone = torch.zeros((), dtype=torch.int64, device=cx.device)
+    parts = torch.stack([changed, new, gone, cx2.sum(), n_hit.to(cx.dtype), n_gone.to(cx.dtype)])
+    changed, new, gone, xx, n_hit, n_gone = parts.tolist()  # the one host read
+    matched = int(n_hit)
+    drift = float(np.sqrt(0.0 + changed + new + gone))
+    return drift, float(np.sqrt(xx)), (matched, ck.numel() - matched, int(n_gone))

@@ -745,6 +745,71 @@ def test_served_batch_is_bitwise_direct_on_card(cuda):
         assert np.array_equal(ba.x, xs[ba.bucket][ba.rows])
 
 
+def _on_cpu(res):
+    """A `SolveResult` with every tensor copied to the host."""
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    return res._replace(lam=res.lam.cpu(), x_slabs=tuple(x.cpu() for x in res.x_slabs),
+                        g=res.g.cpu(), sigma_sq=res.sigma_sq.cpu(),
+                        stats=tuple(type(s)(*map(cpu, s)) for s in res.stats))
+
+
+def test_session_meters_drift_on_card(cuda):
+    """Two warm cadences of a card scheduler, each delta with one insert and
+    one delete: a CPU session that ingests the same deltas and absorbs the
+    same solves (copied to the host) reports the same drift, relative drift
+    and bound at rtol 1e-9, while the card session keeps its previous primal
+    on the card; its checkpoint, restored on the card, meters the next
+    cadence's drift as the original does."""
+    from repro_torch.core import MaximizerConfig as Cfg
+    from repro_torch.service import Scheduler, ServiceConfig, SolveSession
+
+    spec = MatchingInstanceSpec(num_sources=3000, num_destinations=50, avg_degree=6.0, seed=8)
+    base = generate_matching_instance(spec)
+    config = ServiceConfig(cold=Cfg(iters_per_stage=40), warm_gammas=(0.1, 0.01), row_headroom=4)
+    sched = Scheduler(config, device=cuda)
+    card = sched.add_tenant("t0", base)
+    host = SolveSession("t0", base, config, device="cpu")
+    absorbed = []
+    card_absorb = card.absorb
+
+    def recording_absorb(res, **kw):
+        absorbed.append((res, kw))
+        return card_absorb(res, **kw)
+
+    card.absorb = recording_absorb
+    rng = np.random.default_rng(2)
+    deltas = [_cadence_delta(base, rng, n_upd=100, n_ins=1, n_del=1)]
+    for i in range(3):  # the cold solve, then two warm cadences
+        if i:
+            host.ingest(deltas[-1])
+            report = sched.run_cadence({"t0": deltas[-1]}).reports["t0"]
+            deltas.append(_cadence_delta(card.ingestor.to_edge_list(), rng, n_upd=100,
+                                         n_ins=1, n_del=1))
+        else:
+            report = sched.run_cadence().reports["t0"]
+        res, kw = absorbed[-1]
+        want = host.absorb(_on_cpu(res), **{**kw, "unpack": None, "serving": None})
+        for k in ("drift_l2", "drift_rel", "drift_bound"):
+            if i:
+                np.testing.assert_allclose(report[k], want[k], rtol=1e-9, err_msg=k)
+            else:
+                assert report[k] is None and want[k] is None
+        assert all(t.device.type == "cuda" for t in card.prev_primal)
+        assert isinstance(host.prev_primal[0], np.ndarray)
+        assert np.array_equal(card.prev_primal[0].cpu().numpy(), host.prev_primal[0])
+    arrays, meta = card.state_dict()
+    assert isinstance(arrays["primal_keys"], np.ndarray)
+    restored = SolveSession.from_state(config, arrays, meta, device=cuda)
+    assert all(t.device.type == "cuda" for t in restored.prev_primal)
+    card.ingest(deltas[-1])
+    restored.ingest(deltas[-1])
+    res, report = card.solve()
+    again = restored.absorb(res, cold=False, cold_reason=None, batched=False,
+                            dc_norm=report["dc_norm"])
+    assert report["drift_rel"] is not None
+    np.testing.assert_allclose(again["drift_rel"], report["drift_rel"], rtol=1e-9)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B", [1, 2, 4, 7])
 def test_batched_oracle_gamma_per_lane_is_bitwise_solo(cuda, dtype, B):
